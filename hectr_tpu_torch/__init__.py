@@ -3,9 +3,11 @@
 The JAX package ``hectr_tpu`` is the reference; each module here is the
 counterpart of the module at the same path there, and the tests hold
 the two against each other.  This package imports torch and numpy and
-never jax.  The NTT, on every CKKS path, runs as hand-written CUDA
-kernels for Hopper (``hectr_tpu_torch.ops.ntt_cuda``) on CUDA tensors
-and as plain PyTorch on CPU tensors.
+never jax.  Every Pallas kernel of the JAX package has a hand-written
+CUDA kernel for Hopper here (``hectr_tpu_torch.ops``): the NTT pair, on
+every CKKS path, and the modular-multiply ceiling probe
+(``hectr_tpu_torch.bench.vpu_ceiling``).  CUDA tensors go to the
+kernels, CPU tensors to their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

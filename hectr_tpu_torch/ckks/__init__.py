@@ -11,6 +11,6 @@ in ``hectr_tpu.ckks``:
   context   -- parameter presets -> prime chain and cached device tables
   basecvt   -- RNS base conversion
   scheme    -- keygen, encrypt/decrypt, add/sub/neg, ct-pt mult, rescale
-  keyswitch -- hybrid key switching, Galois rotations
+  keyswitch -- hybrid key switching, Galois rotations, ct x ct multiply
   gemv      -- plaintext-matrix x ciphertext-vector products
 """

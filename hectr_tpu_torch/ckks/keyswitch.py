@@ -8,13 +8,17 @@ ns >= 1 special primes), as ``hectr_tpu/ckks/keyswitch.py``.
         ksk_j = ( -a_j s + e_j + gad_j * s',  a_j )   over Q_max * P,
     with gad_j[t] = (P mod p_t) on the limbs of group j, else 0; one key
     made at the top level serves every level by slicing rows.  Keys are
-    stored with their Shoup companions: [dnum, 4, K+S, N], rows 0:2 =
-    (b, a), 2:4 = floor((b, a) * 2^32 / p).
+    stored with their Shoup companions, [dnum, 4, K+S, N] with rows
+    0:2 = (b, a) and 2:4 = floor((b, a) * 2^32 / p), or in the compact
+    layout [dnum, 2, K+S, N] without them (half the memory; the inner
+    product then multiplies by Barrett).
   * Key switch: decompose + extend digits, NTT, inner product with the
     key (one sum + one Barrett pass), then divide by P with centered
     rounding.
   * Galois automorphisms X -> X^{5^r} act in the evaluation domain as a
     precomputed index permutation.
+  * ct x ct multiplication: tensor product (d0, d1, d2), then d2 is
+    switched from s^2 to s with the relinearisation key.
 """
 
 from __future__ import annotations
@@ -107,11 +111,12 @@ def _gadget_np(ctx: CKKSContext) -> np.ndarray:
 
 
 def _gen_switching_key(ctx: CKKSContext, sk_full: torch.Tensor,
-                       s_prime: torch.Tensor, sampler: Sampler) -> torch.Tensor:
+                       s_prime: torch.Tensor, sampler: Sampler,
+                       compact: bool = False) -> torch.Tensor:
     """Key switching s' -> s: int64 [dnum, 4, K+S, N] over the full data
     chain + special primes (rows 0:2 = (b, a), 2:4 = their Shoup
-    companions).  sk_full, s_prime: NTT-domain secrets over the full
-    chain."""
+    companions), or [dnum, 2, K+S, N] when `compact` (no companions).
+    sk_full, s_prime: NTT-domain secrets over the full chain."""
     kd = ctx.max_limbs
     lf = kd + len(ctx.special_primes)
     dnum = ctx.dnum(kd)
@@ -125,15 +130,35 @@ def _gen_switching_key(ctx: CKKSContext, sk_full: torch.Tensor,
     gad = i64(_gadget_np(ctx), device)
     b = add_mod(b, mul_mod(s_prime[None, :lf], gad, t.p, t.mu, t.k), t.p)
     ba = torch.stack([b, a], dim=1)                       # [dnum, 2, lf, N]
+    if compact:
+        return ba
     sh = torch.div(ba << 32, t.p, rounding_mode="floor")
     return torch.cat([ba, sh], dim=1)                     # [dnum, 4, lf, N]
 
 
+def gen_relin_key(ctx: CKKSContext, keys: KeySet, sampler: Sampler,
+                  compact: bool = False) -> torch.Tensor:
+    """Switching key for s^2 -> s (ct x ct multiplication), one draw
+    from `sampler`."""
+    lf = ctx.max_limbs + len(ctx.special_primes)
+    t = ctx.tables_ks(ctx.max_limbs, keys.sk.device)
+    s2 = mul_mod(keys.sk[:lf], keys.sk[:lf], t.p, t.mu, t.k)
+    return _gen_switching_key(ctx, keys.sk, s2, sampler, compact)
+
+
+def _key_bytes(ctx: CKKSContext, compact: bool = False) -> int:
+    """Size of one switching key in bytes: int64 residues, axis-1 factor
+    4 ((b, a) and their Shoup companions), 2 when compact."""
+    lf = ctx.max_limbs + len(ctx.special_primes)
+    return ctx.dnum(ctx.max_limbs) * (2 if compact else 4) * lf * ctx.n * 8
+
+
 def gen_rotation_keys(ctx: CKKSContext, keys: KeySet, sampler: Sampler,
-                      rotations: list[int] | None = None
-                      ) -> dict[int, torch.Tensor]:
+                      rotations: list[int] | None = None,
+                      compact: bool = False) -> dict[int, torch.Tensor]:
     """One switching key per rotation amount (default 1..slots-1, as
-    he_genrk; r = 0 needs no key), drawn from `sampler` in order."""
+    he_genrk; r = 0 needs no key), drawn from `sampler` in order, in
+    the compact layout when `compact`."""
     if rotations is None:
         rotations = list(range(ctx.slots))
     rotations = [r for r in rotations if r % ctx.slots != 0]
@@ -143,7 +168,7 @@ def gen_rotation_keys(ctx: CKKSContext, keys: KeySet, sampler: Sampler,
     for r in rotations:
         perm = permutation(ctx.n, galois_element(r, ctx.n), device)
         s_rot = apply_automorphism(keys.sk[:lf], perm)
-        out[r] = _gen_switching_key(ctx, keys.sk, s_rot, sampler)
+        out[r] = _gen_switching_key(ctx, keys.sk, s_rot, sampler, compact)
     return out
 
 
@@ -172,8 +197,8 @@ def _ks_constants(ctx: CKKSContext, k: int, device):
 
 
 def slice_key(ctx: CKKSContext, ksk: torch.Tensor, k: int) -> torch.Tensor:
-    """Slice a top-level switching key [dnum_max, 4, K_max+S, N] to a
-    k-limb operand: first dnum(k) digits, data rows [0,k) + specials."""
+    """Slice a top-level switching key [dnum_max, 4 or 2, K_max+S, N] to
+    a k-limb operand: first dnum(k) digits, data rows [0,k) + specials."""
     ksk = ksk[:ctx.dnum(k)]
     if k == ctx.max_limbs:
         return ksk
@@ -205,12 +230,17 @@ def decompose_digits(ctx: CKKSContext, c1: torch.Tensor) -> torch.Tensor:
 def _inner_product(ctx: CKKSContext, digits: torch.Tensor, ksk: torch.Tensor,
                    k: int, sliced: bool = False) -> torch.Tensor:
     """sum_j digits[j] * ksk[j] over the extended modulus.  digits
-    [dnum, k+S, N]; key [dnum, 4, k+S, N] once sliced to this level.
-    Shoup products with the stored companions, then one sum + Barrett
-    pass over the digit axis -> [2, k+S, N]."""
+    [dnum, k+S, N]; key [dnum, 4, k+S, N] once sliced to this level
+    (Shoup products with the stored companions) or [dnum, 2, k+S, N] in
+    the compact layout (Barrett products); then one sum + Barrett pass
+    over the digit axis -> [2, k+S, N]."""
     tks = ctx.tables_ks(k, digits.device)
     ksk_l = ksk if sliced else slice_key(ctx, ksk, k)
-    prod = mul_mod_shoup(digits[:, None], ksk_l[:, :2], ksk_l[:, 2:], tks.p)
+    if ksk_l.shape[1] == 4:
+        prod = mul_mod_shoup(digits[:, None], ksk_l[:, :2], ksk_l[:, 2:],
+                             tks.p)
+    else:
+        prod = mul_mod(digits[:, None], ksk_l, tks.p, tks.mu, tks.k)
     return sum_mod(prod, 0, tks.p, tks.mu, tks.k)
 
 
@@ -253,3 +283,23 @@ def rotate(ctx: CKKSContext, ct: Ciphertext, r: int,
     t = ctx.tables(ct.limbs, device)
     return Ciphertext(data=torch.stack([add_mod(c0r, ks[0], t.p), ks[1]]),
                       scale=ct.scale)
+
+
+def mul_ct(ctx: CKKSContext, a: Ciphertext, b: Ciphertext,
+           relin_key: torch.Tensor) -> Ciphertext:
+    """ct x ct multiply + relinearise; scales multiply (rescale
+    separately).  Products are Barrett on int64 residues (< 2^60 since
+    p < 2^30)."""
+    if a.limbs != b.limbs:
+        raise ValueError(f"operands at {a.limbs} vs {b.limbs} limbs")
+    t = ctx.tables(a.limbs, a.data.device)
+    a0, a1 = a.data[0], a.data[1]
+    b0, b1 = b.data[0], b.data[1]
+    d0 = mul_mod(a0, b0, t.p, t.mu, t.k)
+    d1 = add_mod(mul_mod(a0, b1, t.p, t.mu, t.k),
+                 mul_mod(a1, b0, t.p, t.mu, t.k), t.p)
+    d2 = mul_mod(a1, b1, t.p, t.mu, t.k)
+    ks = key_switch(ctx, d2, relin_key)
+    return Ciphertext(data=torch.stack([add_mod(d0, ks[0], t.p),
+                                        add_mod(d1, ks[1], t.p)]),
+                      scale=a.scale * b.scale)

@@ -107,3 +107,11 @@ def mul_mod_shoup_wide(a: torch.Tensor, w, w_shoup, p) -> torch.Tensor:
     r = a * w - q * p
     r = torch.where(r >= p, r - p, r)
     return torch.where(r >= p, r - p, r)
+
+
+def mul_mod_shoup_lazy(a: torch.Tensor, w, w_shoup, p) -> torch.Tensor:
+    """(a * w) mod p + {0, p} in [0, 2p) with no correction, for any
+    0 <= a < 2^31 (e.g. a lazy value in [0, 2p)) and w < p: the
+    primitive of the CUDA kernels' butterflies (csrc/modmath.cuh)."""
+    q = (a * w_shoup) >> 32
+    return a * w - q * p

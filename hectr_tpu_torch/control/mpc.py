@@ -128,7 +128,7 @@ def mpc_gains(l, n, m, N, A, B, C, Q, R):
 def mpc_hessian(l, n, m, N, A, B, C, Q, R) -> np.ndarray:
     """The condensed-QP Hessian H = Theta' CC' QQ CC Theta + RR
     (reference calc_Hc, src/mpc.c:161-196) -- needed by the encrypted
-    projected-gradient QP (hempc.qp_enc, not ported yet), whose gradient is
+    projected-gradient QP (hempc.qp_enc), whose gradient is
     H (du - du_unc)."""
     AA, BB, Theta, CC, QQ, RR = horizon_matrices(l, n, m, N, A, B, C, Q, R)
     CCTheta = CC @ Theta

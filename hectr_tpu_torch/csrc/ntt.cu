@@ -22,8 +22,9 @@
 // the block with a __syncthreads() between stages.  Values stay lazy in
 // [0, 2p) between stages (p < 2^30 keeps every sum below 2^32); the
 // Shoup quotient is __umulhi(a, w'), whose error is at most one for any
-// a < 2^32, so a product lands in [0, 2p) with no correction.  One final
-// normalisation brings the row to [0, p).
+// a < 2^32, so a product lands in [0, 2p) with no correction (the
+// primitives live in modmath.cuh, shared with the multiply-ceiling probe
+// mulmod_chain.cu).  One final normalisation brings the row to [0, p).
 //
 // What bounds it on this card: per row N log2 N / 2 butterflies, each
 // one Shoup multiply (three 32-bit multiplies) and two adds, against
@@ -34,28 +35,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "modmath.cuh"
+
 namespace {
 
 constexpr int kMaxLogN = 15;
-
-__device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t a, uint32_t w,
-                                                   uint32_t w_shoup,
-                                                   uint32_t p) {
-  const uint32_t q = __umulhi(a, w_shoup);
-  return a * w - q * p;  // wrapping; the true value lies in [0, 2p)
-}
-
-__device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b,
-                                             uint32_t p2) {
-  const uint32_t s = a + b;  // < 4p < 2^32
-  return s >= p2 ? s - p2 : s;
-}
-
-__device__ __forceinline__ uint32_t sub_lazy(uint32_t a, uint32_t b,
-                                             uint32_t p2) {
-  const uint32_t d = a + p2 - b;  // in (0, 4p)
-  return d >= p2 ? d - p2 : d;
-}
 
 __global__ void ntt_fwd_kernel(const int64_t* __restrict__ in,
                                int64_t* __restrict__ out,

@@ -6,6 +6,9 @@ Mirrors the reference flow (src/ctr.c:587-590 per step), as
   ctr_hempc:        2x he_sub, 2x he_gemv, he_add, he_neg,
                     he_moddown, he_add     (src/hempc.c:253-266)
   hectr_dec_state:  decrypt + decode, take the first nu slots
+
+With du box bounds the server also runs the encrypted projected-gradient
+QP (hempc.qp_enc) on du before the final add.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ from hectr_tpu_torch.ckks import scheme as S
 from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.gemv import gemv_materials, gemv_apply
 from hectr_tpu_torch.ckks.scheme import KeySet, Sampler
-from hectr_tpu_torch.control.mpc import mpc_gains
+from hectr_tpu_torch.control.mpc import mpc_gains, mpc_hessian
 from hectr_tpu_torch.control.simulate import LinearModel, Plant
 from hectr_tpu_torch.control.stages import weighting_matrices
+from hectr_tpu_torch.hempc.qp_enc import make_encrypted_pgd
 
 
 def regulator_gains(model: LinearModel, plant: Plant, horizon: int):
@@ -42,20 +46,42 @@ def hempc_init_state(sampler: Sampler, device):
 
 def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
                          model: LinearModel, plant: Plant, horizon: int,
-                         bounds=None):
+                         bounds=None, relin_key=None, qp_iters: int = 2,
+                         qp_degree: int = 7, qp_input_bound=3.0):
     """Build the encrypted regulator closure; its state is
     (sampler, canary) from `hempc_init_state`: fresh encryption
-    randomness every step.  Only the unconstrained regulator is ported;
-    `bounds` (the encrypted box-constrained QP) raises."""
-    if bounds is not None:
-        raise NotImplementedError("the encrypted QP (hempc/qp_enc.py) is "
-                                  "not ported yet")
+    randomness every step.
+
+    With `bounds` carrying dumin/dumax (an MPCBounds) and a relin_key,
+    the regulator solves the box-constrained QP over ciphertext by
+    fixed-iteration projected gradient (hempc.qp_enc) -- beyond the
+    reference, whose encrypted path is unconstrained only
+    (src/hempc.c:216-266).  Bounds without dumin run the unconstrained
+    law."""
+    ny, nx = np.shape(model.C)
     nu = np.shape(model.B)[1]
     if ctx.slots < nu * horizon:
         raise ValueError(f"{ctx.slots} slots < nu * horizon = {nu * horizon}")
     K_A, K_B = regulator_gains(model, plant, horizon)
     device = keys.sk.device
     k_top = ctx.max_limbs
+    qp_solve = None
+    if bounds is not None and bounds.dumin is not None:
+        if relin_key is None:
+            raise ValueError("the encrypted QP needs a relinearisation key")
+        Q, R = weighting_matrices(plant.xs, plant.us)
+        H = mpc_hessian(ny, nx, nu, horizon, model.A, model.B, model.C, Q, R)
+        lb = np.tile(np.asarray(bounds.dumin, dtype=np.float64), horizon)
+        ub = np.tile(np.asarray(bounds.dumax, dtype=np.float64), horizon)
+        qp_solve, _ = make_encrypted_pgd(
+            ctx, relin_key, rot_keys, H, lb, ub, k_in=k_top - 2,
+            iters=qp_iters, degree=qp_degree, input_bound=qp_input_bound,
+            input_kind="w_scaled")
+        # fold the QP's w-space normalization diag(1/hw) into the gains
+        # (plaintext, so free): input_kind="w_scaled" saves a rescale pair
+        gain_scale = 2.0 / (ub - lb)
+        K_A = gain_scale[:, None] * K_A
+        K_B = gain_scale[:, None] * K_B
     # d2z_matrix zero-embedding into the slots x slots layout
     # (src/hempc.c:187,195); diagonal plaintexts and keys built once
     mat_A = gemv_materials(ctx, K_A, k_top, rot_keys, device)
@@ -80,6 +106,8 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
         gA = gemv_apply(ctx, mat_A, xdiff)
         gB = gemv_apply(ctx, mat_B, udiff)
         du = S.neg(ctx, S.add(ctx, gA, gB))
+        if qp_solve is not None:
+            du = qp_solve(du)                 # encrypted box projection
         ct_u = S.add(ctx, S.mod_down_to(ctx, ct_uhat, du.limbs), du)
         # --- back across the trust boundary --------------------------
         re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, ct_u))

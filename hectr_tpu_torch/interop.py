@@ -37,7 +37,7 @@ def keyset(sk, pk, device) -> KeySet:
 
 
 def rotation_keys(keys: dict, device) -> dict[int, torch.Tensor]:
-    """{r: uint32 [dnum, 4, K+S, N]} -> {r: int64 tensor}."""
+    """{r: uint32 [dnum, 4 or 2, K+S, N]} -> {r: int64 tensor}."""
     return {int(r): residues(k, device) for r, k in keys.items()}
 
 

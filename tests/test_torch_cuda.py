@@ -1,5 +1,5 @@
-"""The CUDA NTT kernels and the port on a CUDA device, held to the plain
-PyTorch version and to the port on the CPU.
+"""The CUDA kernels (NTT, multiply-ceiling probe) and the port on a CUDA
+device, held to the plain PyTorch versions and to the port on the CPU.
 
 Every test here needs an NVIDIA GPU and skips elsewhere.  The file
 imports neither jax nor the JAX package, so it runs where the card is:
@@ -185,3 +185,98 @@ def test_reference_loop_on_cuda(cuda_device):
     assert np.all(np.max(np.abs(x - x_pt), axis=0) < 5e-10)
     assert np.all(np.max(np.abs(u - u_pt), axis=0) < 5e-10)
     assert canary < 1e-5
+
+
+# ---- K3: the multiply-ceiling probe ----------------------------------------
+
+
+def test_mulmod_chain_kernel_bit_equal_plain(cuda_device):
+    from hectr_tpu_torch.bench import vpu_ceiling as V
+    from hectr_tpu_torch.ops import mulmod_cuda
+
+    x0, c = V.probe_inputs(cuda_device)
+    for r in (0, 1, 7, 64):
+        before = mulmod_cuda.LAUNCHES["mulmod_chain"]
+        got = V.chain(x0, c, r)
+        torch.cuda.synchronize()
+        assert mulmod_cuda.LAUNCHES["mulmod_chain"] == before + 1
+        assert torch.equal(got, V.chain_plain(x0, c, r)), r
+    out = V.dispatch(x0[:256], c, r=128, calls=4)
+    assert torch.equal(out, V.dispatch(x0[:256], c, r=128, calls=4,
+                                       step=V.chain_plain))
+    assert V.pow_probe_ok(x0[:256], out, c, 512)
+
+
+def test_mulmod_chain_wrapper_rejects_what_it_does_not_take(cuda_device):
+    from hectr_tpu_torch.bench import vpu_ceiling as V
+    from hectr_tpu_torch.ops import mulmod_cuda
+
+    x0, c = V.probe_inputs(cuda_device, rows=8)
+    with pytest.raises(ValueError):
+        mulmod_cuda.mulmod_chain_cuda(x0.to(torch.int32), c.w32,
+                                      c.w_shoup32, c.p32, 2)
+    with pytest.raises(ValueError):
+        mulmod_cuda.mulmod_chain_cuda(x0[:, :64].contiguous(), c.w32,
+                                      c.w_shoup32, c.p32, 2)
+    with pytest.raises(ValueError):
+        mulmod_cuda.mulmod_chain_cuda(x0, c.w, c.w_shoup32, c.p32, 2)
+
+
+# ---- ct x ct multiplication ------------------------------------------------
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_mul_ct_and_compact_key_switch_on_cuda_bit_equal_cpu(cuda_device,
+                                                             hybrid):
+    """Relinearisation keys (full and compact), mul_ct with each, rescale,
+    and a key switch with a compact rotation key give the same residues
+    on the card as on the CPU, from the same draws."""
+    preset = cfg.CKKSPreset(name="cuda-mul", logn=10, slots=16,
+                            scale_bits=50, limb_bits=25, mult_depth=2,
+                            special_limbs=2 if hybrid else 1,
+                            digit_width=2 if hybrid else 1)
+    ctx = make_context(preset)
+    pts = [S.encode(ctx, (torch.linspace(-1, 1, 16, dtype=torch.float64) * f,
+                          torch.zeros(16, dtype=torch.float64)), ctx.max_limbs)
+           for f in (1.0, -0.5)]
+    out = {}
+    for dev in (CPU, cuda_device):
+        keys = S.keygen(ctx, NumpySampler(0), dev)
+        cts = [S.encrypt(ctx, keys, S.Plaintext(pt.data.to(dev), pt.scale),
+                         NumpySampler(2 + i)) for i, pt in enumerate(pts)]
+        res = []
+        for compact in (False, True):
+            relin = K.gen_relin_key(ctx, keys, NumpySampler(5),
+                                    compact=compact)
+            prod = K.mul_ct(ctx, cts[0], cts[1], relin)
+            res += [relin, prod.data, S.rescale_pair(ctx, prod).data]
+        rk = K.gen_rotation_keys(ctx, keys, NumpySampler(6), rotations=[3],
+                                 compact=True)
+        res.append(K.rotate(ctx, cts[0], 3, rk).data)
+        out[dev.type] = [r.cpu() for r in res]
+    for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
+        assert torch.equal(a, b), i
+
+
+def test_flagship_qp_sized_mul_ct(cuda_device):
+    """One ct x ct product at k = 30 of FLAGSHIP_QP's chain (logN=15,
+    compact relinearisation key over 34 primes, 15 digits), rescaled and
+    decoded."""
+    ctx = make_context(cfg.FLAGSHIP_QP)
+    keys = S.keygen(ctx, S.TorchSampler(1, cuda_device), cuda_device)
+    relin = K.gen_relin_key(ctx, keys, S.TorchSampler(2, cuda_device),
+                            compact=True)
+    assert relin.shape == (16, 2, 34, 1 << 15)
+    v = torch.linspace(-2, 2, 16, dtype=torch.float64, device=cuda_device)
+    w = torch.cos(torch.arange(16, dtype=torch.float64, device=cuda_device))
+    zeros = torch.zeros_like(v)
+    sampler = S.TorchSampler(3, cuda_device)
+    a = S.encrypt(ctx, keys, S.encode(ctx, (v, zeros), 30), sampler)
+    b = S.encrypt(ctx, keys, S.encode(ctx, (w, zeros), 30), sampler)
+    ntt_cuda.reset_launches()
+    prod = S.rescale_pair(ctx, K.mul_ct(ctx, a, b, relin))
+    re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, prod))
+    assert ntt_cuda.LAUNCHES["ntt"] > 0 and ntt_cuda.LAUNCHES["intt"] > 0
+    assert prod.limbs == 28 and prod.scale == ctx.delta**2 / ctx.pair_scale(30)
+    assert float((re - v * w).abs().max()) < 1e-6
+    assert float(im.abs().max()) < 1e-5

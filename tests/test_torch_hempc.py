@@ -18,12 +18,14 @@ import torch
 
 from hectr_tpu.ckks import keyswitch as JK
 from hectr_tpu.ckks import scheme as JS
+from hectr_tpu.control.mpc import MPCBounds as JBounds
 from hectr_tpu.control.simulate import simulate as jsimulate
 from hectr_tpu.hempc import hempc_init_state as jinit
 from hectr_tpu.hempc import make_hempc_regulator as jregulator
 from hectr_tpu_torch import cli
 from hectr_tpu_torch.ckks import keyswitch as TK
 from hectr_tpu_torch.ckks import scheme as TS
+from hectr_tpu_torch.control.mpc import MPCBounds
 from hectr_tpu_torch.control.simulate import simulate
 from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
 from hectr_tpu_torch.utils import read_traj_bin
@@ -71,7 +73,7 @@ def loops():
         return_state=True)
     x_pt, u_pt = simulate(model, plant, p_seq, dt, STEPS, CPU, horizon=HORIZON)
     return dict(x=x, u=u, canary=float(canary), jx=jx, ju=ju,
-                jcanary=float(jcanary), x_pt=x_pt, u_pt=u_pt)
+                jcanary=float(jcanary), x_pt=x_pt, u_pt=u_pt, keys=keys, rk=rk)
 
 
 def test_encrypted_loop_matches_reference(loops):
@@ -89,12 +91,43 @@ def test_encrypted_loop_matches_plaintext_twin(loops):
 
 
 def test_constrained_regulator_not_ported():
-    ctx, _ = contexts(SLICE)
-    model, plant, *_ = port_setup()
+    """The encrypted QP is ported now; what stays refused, as
+    hectr_tpu/hempc/regulator.py:96-100 refuses it, is du bounds without
+    a relinearisation key (the JAX package asserts, the port raises
+    ValueError)."""
+    ctx, jctx = contexts(SLICE)
+    model, plant, _, _, _, jmodel, jplant = port_setup()
     keys = TS.keygen(ctx, TS.TorchSampler(0, CPU), CPU)
-    with pytest.raises(NotImplementedError):
+    box = dict(dumin=np.array([-0.25, -0.004]), dumax=np.array([0.25, 0.004]))
+    with pytest.raises(ValueError, match="relinearisation key"):
         make_hempc_regulator(ctx, keys, {}, model, plant, HORIZON,
-                             bounds=object())
+                             bounds=MPCBounds(**box))
+    jkeys = JS.keygen(jctx, jax.random.PRNGKey(0))
+    with pytest.raises(AssertionError, match="relin key"):
+        jregulator(jctx, jkeys, {}, jmodel, jplant, HORIZON,
+                   bounds=JBounds(**box))
+
+
+def test_bounds_without_du_run_the_unconstrained_law(loops):
+    """Bounds that carry only umin/umax (no dumin) run the unconstrained
+    regulator, as hectr_tpu/hempc/regulator.py:96 does: the same 8-step
+    trajectory as bounds=None, to the last bit, from the same keys and
+    draws."""
+    ctx, _ = contexts(SLICE)
+    model, plant, _, dt, _, _, _ = port_setup()
+    p_seq = np.zeros((STEPS, 1))
+    p_seq[3:, 0] = 0.1 * plant.ps[0]
+    bounds = MPCBounds(umin=np.array([290.0, 0.05]),
+                       umax=np.array([310.0, 0.15]))
+    reg = make_hempc_regulator(ctx, loops["keys"], loops["rk"], model, plant,
+                               HORIZON, bounds=bounds)
+    sampler = JaxReplay(enc_keys=regulator_enc_keys(jax.random.PRNGKey(7)))
+    x, u, (_, canary) = simulate(
+        model, plant, p_seq, dt, STEPS, CPU, regulator=reg,
+        regulator_state=hempc_init_state(sampler, CPU), horizon=HORIZON,
+        return_state=True)
+    assert np.array_equal(x, loops["x"]) and np.array_equal(u, loops["u"])
+    assert float(canary) == loops["canary"]
 
 
 def test_package_imports_no_jax():

@@ -173,3 +173,87 @@ def test_gemv_auto_resolution_matches(setup):
             assert got[0] == want[0] and got[2] == want[2]
     with pytest.raises(KeyError):
         TG._resolve_method(ctx, MATRICES["dense"], {1: None}, "auto")
+
+
+# ---- ct x ct multiplication: relinearisation key, compact layout --------
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["full", "compact"])
+def test_relin_key_bit_equal_with_replayed_draws(setup, compact):
+    ctx, jctx, keys, jkeys, _, _, _, _ = setup
+    key = jax.random.PRNGKey(11)
+    want = JK.gen_relin_key(jctx, jkeys, key, compact=compact)
+    got = TK.gen_relin_key(ctx, keys, JaxReplay(switch_keys=[key]),
+                           compact=compact)
+    assert got.shape == want.shape == (
+        ctx.dnum(ctx.max_limbs), 2 if compact else 4,
+        ctx.max_limbs + len(ctx.special_primes), ctx.n)
+    assert np.array_equal(u32(got), np.asarray(want))
+    # int64 residues: twice the JAX package's uint32 bytes
+    assert got.numel() * 8 == TK._key_bytes(ctx, compact) \
+        == 2 * JK._key_bytes(jctx, compact)
+
+
+def test_compact_rotation_keys_bit_equal_with_replayed_draws(setup):
+    ctx, jctx, keys, jkeys, _, _, _, _ = setup
+    key = jax.random.PRNGKey(6)
+    want = JK.gen_rotation_keys(jctx, jkeys, key, rotations=ROTATIONS,
+                                compact=True)
+    got = TK.gen_rotation_keys(
+        ctx, keys, JaxReplay(switch_keys=rotation_switch_keys(key, ROTATIONS)),
+        rotations=ROTATIONS, compact=True)
+    full = TK.gen_rotation_keys(
+        ctx, keys, JaxReplay(switch_keys=rotation_switch_keys(key, ROTATIONS)),
+        rotations=ROTATIONS)
+    assert sorted(got) == sorted(want) == ROTATIONS
+    for r in ROTATIONS:
+        assert got[r].shape[1] == 2
+        assert np.array_equal(u32(got[r]), np.asarray(want[r])), r
+        assert torch.equal(got[r], full[r][:, :2]), r   # the same (b, a)
+
+
+@pytest.mark.parametrize("k_drop", [0, 2])
+def test_compact_key_switch_bit_equal(setup, k_drop):
+    """Barrett products with the compact key give the JAX package's
+    result bit for bit, and the full layout's Shoup result too."""
+    ctx, jctx, _, _, rk, jrk, ct, jct = setup
+    k = ctx.max_limbs - k_drop
+    c1, jc1 = ct.data[1, :k], jct.data[1, :k]
+    got = TK.key_switch(ctx, c1, rk[3][:, :2].contiguous())
+    want = jax.jit(lambda c, key: JK.key_switch(jctx, c, key))(
+        jc1, jrk[3][:, :2])
+    assert np.array_equal(u32(got), np.asarray(want))
+    assert torch.equal(got, TK.key_switch(ctx, c1, rk[3]))
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["full", "compact"])
+def test_mul_ct_and_rescale_bit_equal(setup, compact):
+    ctx, jctx, keys, jkeys, _, _, ct, jct = setup
+    v = np.linspace(-2, 2, 16)
+    w = np.cos(np.arange(16.0))
+    jb = jax.jit(lambda p: JS.encrypt(jctx, jkeys, p, jax.random.PRNGKey(3)))(
+        jencode(jctx, w, np.zeros(16), ctx.max_limbs))
+    b = interop.ciphertext(jb.data, jb.scale, CPU)
+    jrelin = JK.gen_relin_key(jctx, jkeys, jax.random.PRNGKey(12),
+                              compact=compact)
+    relin = interop.residues(jrelin, CPU)
+    got = TK.mul_ct(ctx, ct, b, relin)
+    scale = jct.scale
+
+    def jmul(x, y, r):
+        return JK.mul_ct(jctx, JS.Ciphertext(data=x, scale=scale),
+                         JS.Ciphertext(data=y, scale=scale), r).data
+
+    want = jax.jit(jmul)(jct.data, jb.data, jrelin)
+    assert got.scale == scale * scale
+    assert np.array_equal(u32(got.data), np.asarray(want))
+    res = TS.rescale_pair(ctx, got)
+    jres = jax.jit(lambda d: JS.rescale_pair(
+        jctx, JS.Ciphertext(data=d, scale=scale * scale)).data)(want)
+    assert res.scale == scale * scale / ctx.pair_scale(ctx.max_limbs)
+    assert np.array_equal(u32(res.data), np.asarray(jres))
+    re, im = TS.decode_ri(ctx, TS.decrypt(ctx, keys, res))
+    assert np.max(np.abs(re.numpy() - v * w)) < 1e-6
+    assert np.max(np.abs(im.numpy())) < 1e-5
+    with pytest.raises(ValueError):
+        TK.mul_ct(ctx, ct, TS.mod_down_pair(ctx, b), relin)
