@@ -27,9 +27,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      plaintext mirror's eta, envelope and certificate equal the JAX
      run's; <= 1e-4 per channel against the mirror, box honored to 1e-4
      and active, canary < 1e-5
-  8. each kernel launched on every path that uses it (K1/K2 in phases
-     3, 4, 6, 7; K3 in phase 5); the kernel summary, the card, and as
-     the last line {"ok": true, "device": {...}}
+  8. "he": the reference's he_* call sequence at its exact parameters
+     (hectx_init(12, 109, 16, 50), 15 rotation keys, 4 encryptions, 2
+     gemvs): the control law to 1e-8, canary < 1e-5, the realized
+     modulus and security estimate printed; the native CRT oracle
+     (csrc/hectr_host.cpp, built with g++) on the decrypted plaintext
+  9. "medium": MEDIUM at full width (logN=14, 8192 slots, 12 limbs):
+     FFT embedding on the card = the CPU's to 1e-12; encrypt/decrypt of
+     8192 complex slots to 1e-6; rotations by 1 and 7; a 5-level ct x ct
+     chain (compact relinearisation key, 12 -> 2 limbs) to 1e-6 per
+     level; a dense 8192 x 8192 BSGS gemv (180 compact keys) to 1e-4 of
+     M v, with its key and plaintext-grid bytes, peak device memory and
+     times
+ 10. each kernel launched on every path that uses it (K1/K2 in phases
+     3, 4, 6-9; K3 in phase 5); each phase's wall time, the kernel
+     summary, the card, and as the last line {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -118,11 +130,12 @@ def phase_kernels(device, kernel_rows):
     print(f"[kernels] {cases} cases bit-equal to plain (ntt, intt, "
           f"roundtrip); max |kernel - plain| = {max_err}", flush=True)
 
-    # times at the loop's shapes: the digit stack of decompose_digits
+    # times at the loops' shapes: the digit stack of decompose_digits
     times = {}
     for label, preset, shape in (
             ("reference", "reference-hempc", (4, 5, 1 << 12)),
-            ("flagship", "flagship", (11, 24, 1 << 15))):
+            ("flagship", "flagship", (11, 24, 1 << 15)),
+            ("medium", "medium", (6, 14, 1 << 14))):
         ctx = make_context(PRESETS[preset])
         t = ctx.tables_ks(ctx.max_limbs, device)
         a = random_residues(t.primes, shape[:1], shape[2], gen, device)
@@ -394,6 +407,238 @@ def phase_qp(device, card):
     return launches
 
 
+def facade_problem():
+    """The op chain's data of tests/test_he_facade.py (src/hempc.c:240-266);
+    the port's facade tests build their problem here too."""
+    rng = np.random.default_rng(0)
+    xhat = np.zeros(16, np.complex128)
+    xhat[:3] = rng.uniform(-1, 1, 3)
+    xr = np.zeros(16, np.complex128)
+    xr[:3] = rng.uniform(-1, 1, 3)
+    uhat = np.zeros(16, np.complex128)
+    uhat[:2] = rng.uniform(-1, 1, 2)
+    ur = np.zeros(16, np.complex128)
+    K_A = np.zeros((16, 16))
+    K_A[:8, :3] = rng.normal(size=(8, 3))
+    K_B = np.zeros((16, 16))
+    K_B[:8, :2] = rng.normal(size=(8, 2))
+    return xhat, xr, uhat, ur, K_A, K_B
+
+
+def phase_he(device, card):
+    """The reference's he_* call sequence at its exact parameters, and the
+    native CRT oracle on the decrypted plaintext."""
+    from hectr_tpu_torch import he, native
+    from hectr_tpu_torch.ckks.encoding import unembed
+    from hectr_tpu_torch.ckks.modmath import from_rns
+    from hectr_tpu_torch.ckks.ntt import intt
+
+    xhat, xr, uhat, ur, K_A, K_B = facade_problem()
+    reset_launches()
+    t0 = time.perf_counter()
+    hc = he.hectx_init(12, 109, 16, 50, seed=0, verbose=True, device=device)
+    he.he_keypair(hc)
+    he.he_genrk(hc)
+    ct_xhat, ct_uhat, ct_xr, ct_ur = (he.he_enc_pk(hc, he.he_ecd(hc, v))
+                                      for v in (xhat, uhat, xr, ur))
+    xdiff = he.he_sub(hc, ct_xhat, ct_xr)
+    udiff = he.he_sub(hc, ct_uhat, ct_ur)
+    du = he.he_neg(hc, he.he_add(hc, he.he_gemv(hc, K_A, xdiff),
+                                 he.he_gemv(hc, K_B, udiff)))
+    u = he.he_add(hc, he.he_moddown(hc, he.he_copy_ct(hc, ct_uhat)), du)
+    pt = he.he_dec(hc, u)
+    got = he.he_dcd(hc, pt).cpu().numpy()
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    launches = read_launches()
+    want = uhat - (K_A @ (xhat - xr) + K_B @ (uhat - ur))
+    err = float(np.max(np.abs(got.real - want.real)))
+    canary = float(np.max(np.abs(got.imag)))
+    print(f"[he] hectx_init(12, 109, 16, 50): realized logQ "
+          f"{hc.realized_logq}, logQP {hc.realized_logqp}, depth {hc.depth}, "
+          f"security ~{hc.security_bits:.1f} bits; {len(hc.rot_keys)} rotation "
+          f"keys; whole call sequence {t_seq:.3f} s on {card}", flush=True)
+    print(f"[he] max |u - (uhat - K_A (xhat - xr) - K_B (uhat - ur))| = "
+          f"{err:.3e}, canary {canary:.3e}; launches {launches}", flush=True)
+    check(hc.realized_logqp > hc.realized_logq > 0 and hc.security_bits > 0,
+          "he: realized modulus not reported")
+    check(err <= 1e-8, f"he: control law off by {err}")
+    check(canary < 1e-5, f"he canary {canary}")
+
+    # the exact host oracle on the base residues of the decrypted
+    # plaintext: its coefficients over the scale decode to the same slots
+    ctx = hc.ctx
+    kb = len(ctx.base_primes)
+    check(pt.limbs == kb, f"he: plaintext at {pt.limbs} limbs, not {kb}")
+    t0 = time.perf_counter()
+    res = intt(pt.data, ctx.tables(kb, device)).cpu()
+    coeffs = native.crt_centered(res, ctx.base_primes)
+    t_crt = time.perf_counter() - t0
+    check(all(int(a) == int(b) for a, b in
+              zip(coeffs, from_rns(res, ctx.base_primes))),
+          "he: native CRT differs from the pure-Python CRT")
+    stride = ctx.n // (2 * ctx.slots)
+    m = torch.tensor([float(c) / float(pt.scale) for c in coeffs[::stride]],
+                     dtype=torch.float64)
+    re, im = unembed(m, ctx.slots)
+    crt_err = float(max(np.abs(re.numpy() - got.real).max(),
+                        np.abs(im.numpy() - got.imag).max()))
+    print(f"[he] native crt_centered ({native.LIBRARY.name}, g++) on the "
+          f"decrypted plaintext's {kb} base limbs x {ctx.n}: {t_crt:.3f} s; "
+          f"its slots vs he_dcd max {crt_err:.3e}", flush=True)
+    check(crt_err <= 1e-9, f"he: exact CRT decode differs by {crt_err}")
+    he.hectx_exit(hc)
+    return launches
+
+
+def phase_medium(device, card):
+    """MEDIUM at full width: FFT embedding on the card, encrypt/decrypt,
+    rotations, a 5-level ct x ct chain and a dense BSGS gemv over all
+    slots."""
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.ckks.context import make_context
+    from hectr_tpu_torch.ckks.encoding import embed_ri, unembed
+    from hectr_tpu_torch.ckks.gemv import (bsgs_rotations, gemv_apply,
+                                           gemv_materials)
+    from hectr_tpu_torch.ckks.keyswitch import (gen_relin_key,
+                                                gen_rotation_keys, mul_ct,
+                                                rotate)
+    from hectr_tpu_torch.config import MEDIUM
+
+    ctx = make_context(MEDIUM)
+    s, k = ctx.slots, ctx.max_limbs
+    rng = np.random.default_rng(0)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def decoded(ct):
+        return S.decode(ctx, S.decrypt(ctx, keys, ct)).cpu().numpy()
+
+    # 1. the FFT embedding on the card against the CPU
+    vre, vim = rng.uniform(-5, 5, s), rng.uniform(-5, 5, s)
+    m_cpu = embed_ri(torch.from_numpy(vre), torch.from_numpy(vim), s)
+    m_dev = embed_ri(on(vre), on(vim), s)
+    r_cpu, i_cpu = unembed(m_cpu, s)
+    r_dev, i_dev = unembed(m_dev, s)
+    e_embed = float((m_dev.cpu() - m_cpu).abs().max())
+    e_unembed = float(max((r_dev.cpu() - r_cpu).abs().max(),
+                          (i_dev.cpu() - i_cpu).abs().max()))
+    e_round = float(max(np.abs(r_dev.cpu().numpy() - vre).max(),
+                        np.abs(i_dev.cpu().numpy() - vim).max()))
+    print(f"[medium] {ctx.preset.name}: logN={ctx.preset.logn}, {s} slots, "
+          f"{k} data + {len(ctx.special_primes)} special limbs, "
+          f"{ctx.dnum(k)} digits; FFT embedding card vs CPU: embed "
+          f"{e_embed:.3e}, unembed {e_unembed:.3e}; unembed(embed(v)) - v "
+          f"{e_round:.3e}", flush=True)
+    check(max(e_embed, e_unembed, e_round) <= 1e-12,
+          "medium: FFT embedding off on the card")
+
+    reset_launches()
+    # 2. encrypt / decrypt of s complex slots
+    t0 = time.perf_counter()
+    keys = S.keygen(ctx, S.TorchSampler(61, device), device)
+    enc = S.TorchSampler(62, device)
+    v = vre + 1j * vim
+    ct = S.encrypt(ctx, keys, S.encode(ctx, on(v), k), enc)
+    got = decoded(ct)
+    t_rt = time.perf_counter() - t0
+    e_rt = float(max(np.abs(got.real - vre).max(), np.abs(got.imag - vim).max()))
+
+    # 3. rotations by 1 and 7
+    rk = gen_rotation_keys(ctx, keys, S.TorchSampler(63, device),
+                           rotations=[1, 7])
+    vr = rng.uniform(-3, 3, s)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, on(vr + 0j), k), enc)
+    e_rot, c_rot = [], []
+    for r in (1, 7):
+        got = decoded(rotate(ctx, ct, r, rk))
+        e_rot.append(float(np.abs(got.real - np.roll(vr, -r)).max()))
+        c_rot.append(float(np.abs(got.imag).max()))
+    del rk
+    print(f"[medium] encrypt/decrypt of {s} complex slots U(-5,5): max err "
+          f"{e_rt:.3e} (keygen + encode + encrypt + decrypt + decode "
+          f"{t_rt:.3f} s); rotate by 1, 7: max err {e_rot}, max |imag| "
+          f"{c_rot}", flush=True)
+    check(e_rt <= 1e-6, f"medium roundtrip {e_rt}")
+    check(max(e_rot) <= 1e-6 and max(c_rot) < 1e-4, "medium rotation")
+
+    # 4. ct x ct chain: enc(v) * enc(w)^i, 12 -> 2 limbs
+    relin = gen_relin_key(ctx, keys, S.TorchSampler(64, device), compact=True)
+    v = rng.uniform(-0.7, 0.7, s) + 1j * rng.uniform(-0.7, 0.7, s)
+    w = rng.uniform(-0.7, 0.7, s) + 1j * rng.uniform(-0.7, 0.7, s)
+    a = S.encrypt(ctx, keys, S.encode(ctx, on(v), k), enc)
+    b = S.encrypt(ctx, keys, S.encode(ctx, on(w), k), enc)
+    step_ms = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        S.rescale_pair(ctx, mul_ct(ctx, a, b, relin))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    want, chain_err, levels = v, [], []
+    while a.limbs > 2:
+        a = S.rescale_pair(ctx, mul_ct(ctx, a, S.mod_down_to(ctx, b, a.limbs),
+                                       relin))
+        want = want * w
+        chain_err.append(float(np.abs(decoded(a) - want).max()))
+        levels.append(a.limbs)
+    del relin
+    print(f"[medium] ct x ct chain (compact relin key): limbs {levels}, max "
+          f"|dec - v w^i| per level {chain_err}; mul_ct + rescale at k={k}: "
+          f"median {np.median(step_ms):.3f} ms over 5 calls on {card}",
+          flush=True)
+    check(len(chain_err) == (k - 2) // 2 and max(chain_err) <= 1e-6,
+          f"medium ct x ct chain {chain_err}")
+
+    # 5. dense BSGS gemv over every slot
+    M = np.random.default_rng(9).normal(size=(s, s)) / np.sqrt(s)
+    vg = rng.uniform(-2, 2, s)
+    sync()
+    t0 = time.perf_counter()
+    rk = gen_rotation_keys(ctx, keys, S.TorchSampler(65, device),
+                           rotations=bsgs_rotations(s), compact=True)
+    sync()
+    t_keys = time.perf_counter() - t0
+    key_bytes = sum(x.numel() * x.element_size() for x in rk.values())
+    t0 = time.perf_counter()
+    mat = gemv_materials(ctx, M, k, rk, device, method="bsgs")
+    sync()
+    t_mat = time.perf_counter() - t0
+    b = mat["bsgs"]
+    grid = [g["pt"] for g in b["giant"]]
+    if "pt0" in b:
+        grid.append(b["pt0"])
+    grid_bytes = sum(x.numel() * x.element_size() for x in grid)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, on(vg + 0j), k), enc)
+    gemv_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        out = gemv_apply(ctx, mat, ct)
+        sync()
+        gemv_ms.append((time.perf_counter() - t0) * 1e3)
+    got = decoded(out)
+    launches = read_launches()
+    e_gemv = float(np.abs(got.real - M @ vg).max())
+    c_gemv = float(np.abs(got.imag).max())
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"[medium] dense {s} x {s} BSGS gemv at k={k}: {len(rk)} compact "
+          f"keys ({key_bytes} B on the card) in {t_keys:.2f} s; materials "
+          f"({len(grid)} x {b['n1']} diagonal plaintexts, {grid_bytes} B) in "
+          f"{t_mat:.2f} s; median gemv {np.median(gemv_ms):.1f} ms over 3 "
+          f"calls ({[round(x, 1) for x in gemv_ms]}); max |dec - M v| "
+          f"{e_gemv:.3e}, max |imag| {c_gemv:.3e}; peak device memory "
+          f"{peak} B on {card}; launches {launches}", flush=True)
+    check(e_gemv <= 1e-4 and c_gemv < 1e-3, f"medium gemv {e_gemv}, {c_gemv}")
+    del mat, b, grid, rk, keys
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -409,14 +654,17 @@ def main() -> None:
     from hectr_tpu_torch.ops import build, mulmod_cuda, ntt_cuda
     from hectr_tpu_torch.utils import read_traj_bin
 
-    t0 = time.perf_counter()
-    sources = ("ntt.cu", "mulmod_chain.cu")
-    libs = build.build(*sources)
-    ntt_cuda.library()
-    mulmod_cuda.library()
+    from hectr_tpu_torch.utils.pmu import Timer
+
+    timer = Timer()          # each phase's wall time, device synchronized
+    with timer.section("build"):
+        sources = ("ntt.cu", "mulmod_chain.cu")
+        libs = build.build(*sources)
+        ntt_cuda.library()
+        mulmod_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{timer.sections['build']:.2f} s", flush=True)
 
     kernel_rows = {
         "ntt": {"name": "ntt_fwd", "route": "cuda",
@@ -429,10 +677,12 @@ def main() -> None:
                          "source": "hectr_tpu_torch/csrc/mulmod_chain.cu",
                          "replaces": "scripts/bench_vpu_ceiling.py:61"},
     }
-    phase_kernels(device, kernel_rows)
+    with timer.section("kernels"):
+        phase_kernels(device, kernel_rows)
 
-    x, u, dev, canary, launches_ref, _ = run_loop(
-        "reference-hempc", REFERENCE_HEMPC, None, device, card)
+    with timer.section("reference-hempc"):
+        x, u, dev, canary, launches_ref, _ = run_loop(
+            "reference-hempc", REFERENCE_HEMPC, None, device, card)
     check(bool((dev <= 5e-10).all()), f"reference deviation {dev}")
     check(canary < 1e-5, f"reference canary {canary}")
     golden_x, golden_u = read_traj_bin(ROOT / "tests/golden/cstr-hempc.bin")
@@ -443,26 +693,38 @@ def main() -> None:
           f"channel {rel.tolist()}", flush=True)
     check(bool((rel < 1e-6).all()), f"golden mismatch {rel}")
 
-    x, u, dev, canary, launches_flag, flagship = run_loop(
-        "flagship", FLAGSHIP, bsgs_rotations(FLAGSHIP.slots), device, card)
+    with timer.section("flagship"):
+        x, u, dev, canary, launches_flag, flagship = run_loop(
+            "flagship", FLAGSHIP, bsgs_rotations(FLAGSHIP.slots), device, card)
     check(bool((dev <= 2e-9).all()), f"flagship deviation {dev}")
     check(canary < 1e-5, f"flagship canary {canary}")
     check(bool(np.allclose(x[-1], FLAGSHIP_FINAL_STATE, rtol=1e-4, atol=0)),
           f"flagship final state {x[-1]}")
 
-    phase_ceiling(device, kernel_rows, card)
-    launches_fused = phase_fused(device, flagship, card)
+    with timer.section("ceiling"):
+        phase_ceiling(device, kernel_rows, card)
+    with timer.section("fused"):
+        launches_fused = phase_fused(device, flagship, card)
     del flagship
-    launches_qp = phase_qp(device, card)
+    with timer.section("flagship-qp"):
+        launches_qp = phase_qp(device, card)
+    with timer.section("he"):
+        launches_he = phase_he(device, card)
+    with timer.section("medium"):
+        launches_medium = phase_medium(device, card)
 
     loops = (("reference-hempc", launches_ref), ("flagship", launches_flag),
-             ("fused", launches_fused), ("flagship-qp", launches_qp))
+             ("fused", launches_fused), ("flagship-qp", launches_qp),
+             ("he", launches_he), ("medium", launches_medium))
     for label, launches in loops:
         for kname in ("ntt", "intt"):
             check(launches[kname] > 0,
-                  f"{kname} kernel never launched in the {label} loop")
+                  f"{kname} kernel never launched in the {label} phase")
     for kname in ("ntt", "intt"):
         kernel_rows[kname]["launches"] = sum(l[kname] for _, l in loops)
+    print(f"[phases] wall time per phase (s) on {card}: "
+          f"{json.dumps({k: round(v, 2) for k, v in timer.report().items()})}",
+          flush=True)
     print(json.dumps({"kernels": list(kernel_rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

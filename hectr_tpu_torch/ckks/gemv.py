@@ -110,11 +110,12 @@ def _resolve_method(ctx: CKKSContext, M: np.ndarray, rot_keys: dict,
     return method, diags, active
 
 
-def _encode_diag(ctx: CKKSContext, d: np.ndarray, k: int, scale,
-                 device: torch.device) -> torch.Tensor:
-    """One diagonal's slot vector -> NTT-domain residues [k, N]."""
-    v = (torch.from_numpy(np.ascontiguousarray(d.real)).to(device),
-         torch.from_numpy(np.ascontiguousarray(d.imag)).to(device))
+def _encode_diags(ctx: CKKSContext, D: np.ndarray, k: int, scale,
+                  device: torch.device) -> torch.Tensor:
+    """Diagonals' slot vectors [R, s] -> NTT-domain residues [R, k, N],
+    in one batched encode (each row equals its own 1-D encode)."""
+    v = (torch.from_numpy(np.ascontiguousarray(D.real)).to(device),
+         torch.from_numpy(np.ascontiguousarray(D.imag)).to(device))
     return encode(ctx, v, k, scale).data
 
 
@@ -165,15 +166,12 @@ def gemv(ctx: CKKSContext, M: np.ndarray, ct: Ciphertext, rot_keys: dict,
 
 def _materials_diag(ctx, diags, active, k, rot_keys, device) -> dict:
     s = ctx.slots
-    pair = ctx.pair_scale(k)
-    d: dict = {}
-    if 0 in active:
-        d["pt0"] = _encode_diag(ctx, diags[0], k, pair, device)
-    d["rot"] = []
-    for r in active:
+    pts = _encode_diags(ctx, diags[active], k, ctx.pair_scale(k), device)
+    d: dict = {"rot": []}
+    for r, pt in zip(active, pts):
         if r % s == 0:
+            d["pt0"] = pt
             continue
-        pt = _encode_diag(ctx, diags[r], k, pair, device)
         d["rot"].append({
             "perm": permutation(ctx.n, galois_element(r, ctx.n), device),
             "ksk": slice_key(ctx, rot_keys[r], k),
@@ -221,14 +219,15 @@ def _materials_bsgs(ctx, diags, active, k, rot_keys, device) -> dict:
 
     # diag'_{g,b} = rot_{-g n1}(diag_{g n1 + b}); np.roll by +g*n1 is
     # exactly rot_{-g n1}.  Inactive (b, g) cells encode the zero vector.
+    # One batched encode per group: n1 rows at a time bounds the
+    # temporaries of a dense full-packing grid.
     def encode_group(g):
-        rows = []
+        D = np.zeros((n1, s), dtype=np.complex128)
         for b in range(n1):
             r = g * n1 + b
-            dg = (np.roll(diags[r], g * n1) if r < s and r in active_set
-                  else np.zeros(s, dtype=np.complex128))
-            rows.append(_encode_diag(ctx, dg, k, pair, device))
-        return torch.stack(rows)                            # [n1, k, N]
+            if r < s and r in active_set:
+                D[b] = np.roll(diags[r], g * n1)
+        return _encode_diags(ctx, D, k, pair, device)       # [n1, k, N]
 
     b: dict = {"n1": n1, "baby": [
         {"perm": permutation(ctx.n, galois_element(bb, ctx.n), device),

@@ -115,3 +115,26 @@ def mul_mod_shoup_lazy(a: torch.Tensor, w, w_shoup, p) -> torch.Tensor:
     primitive of the CUDA kernels' butterflies (csrc/modmath.cuh)."""
     q = (a * w_shoup) >> 32
     return a * w - q * p
+
+
+def to_rns(coeffs_obj, primes) -> torch.Tensor:
+    """Host oracle: exact signed big-int coefficients [N] -> int64
+    residues [L, N] (CPU), in exact object-integer arithmetic."""
+    c = np.asarray(coeffs_obj, dtype=object)
+    return torch.from_numpy(np.stack([(c % p).astype(np.int64)
+                                      for p in primes]))
+
+
+def from_rns(res, primes) -> np.ndarray:
+    """Host oracle: residues [L, N] (int64 tensor or array) -> exact
+    centered big-int coefficients (object array [N]) by CRT."""
+    res = np.asarray(res.cpu() if isinstance(res, torch.Tensor) else res)
+    q = 1
+    for p in primes:
+        q *= p
+    acc = np.zeros(res.shape[1], dtype=object)
+    for i, p in enumerate(primes):
+        qi = q // p
+        inv = pow(qi % p, -1, p)
+        acc = (acc + res[i].astype(object) * inv % p * qi) % q
+    return np.where(acc > q // 2, acc - q, acc)

@@ -247,3 +247,8 @@ def intt(a: torch.Tensor, t: NTTTables) -> torch.Tensor:
 def pointwise_mul(a: torch.Tensor, b: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """Elementwise product in the NTT domain (Barrett)."""
     return mul_mod(a, b, t.p, t.mu, t.k)
+
+
+def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, t: NTTTables) -> torch.Tensor:
+    """Polynomial product mod X^N + 1 per limb: intt(ntt(a) * ntt(b))."""
+    return intt(pointwise_mul(ntt(a, t), ntt(b, t), t), t)

@@ -23,7 +23,12 @@ import torch
 
 from hectr_tpu_torch.ckks import dd
 from hectr_tpu_torch.ckks.context import CKKSContext
-from hectr_tpu_torch.ckks.encoding import embed_ri, integer_residues, unembed
+from hectr_tpu_torch.ckks.encoding import (
+    complex_tensor,
+    embed_ri,
+    integer_residues,
+    unembed,
+)
 from hectr_tpu_torch.ckks.modmath import (
     add_mod,
     mul_mod,
@@ -180,51 +185,64 @@ def decrypt(ctx: CKKSContext, keys: KeySet, ct: Ciphertext) -> Plaintext:
 # ---------------------------------------------------------------------------
 
 
-def encode(ctx: CKKSContext, v: tuple[torch.Tensor, torch.Tensor], k: int,
+def encode(ctx: CKKSContext, v, k: int,
            scale: Fraction | None = None) -> Plaintext:
-    """Slot values as a (re, im) pair of float64 [slots] tensors ->
-    NTT-domain plaintext over the first k limbs at `scale` (default
-    Delta), on the device of the values."""
-    vre, vim = v
+    """Slot values [..., slots] -> NTT-domain plaintext over the first k
+    limbs at `scale` (default Delta).  v is an (re, im) pair of float64
+    tensors or a complex array or tensor (a numpy array encodes on the
+    CPU, a tensor on its device)."""
+    if isinstance(v, tuple):
+        vre, vim = v
+    else:
+        v = complex_tensor(v)
+        vre, vim = v.real, v.imag
     return encode_embedded(ctx, embed_ri(vre, vim, ctx.slots), k, scale)
 
 
 def encode_embedded(ctx: CKKSContext, m: torch.Tensor, k: int,
                     scale: Fraction | None = None) -> Plaintext:
-    """Real subring coefficients m'[2s] (the output of embed_ri) ->
-    NTT-domain plaintext: round(m' * scale), residues, spread to stride
-    N/2s, NTT."""
+    """Real subring coefficients m' [..., 2s] (the output of embed_ri) ->
+    NTT-domain plaintext [..., k, N]: round(m' * scale), residues,
+    spread to stride N/2s, NTT."""
     scale = ctx.delta if scale is None else scale
     stride = ctx.n // (2 * ctx.slots)
     t = ctx.tables(k, m.device)
     y = torch.round(m * float(scale))
-    res = integer_residues(y, t.p)                       # [k, 2s]
-    coeffs = torch.zeros((k, ctx.n), dtype=torch.int64, device=m.device)
-    coeffs[:, ::stride] = res
+    res = integer_residues(y, t.p)                       # [..., k, 2s]
+    coeffs = torch.zeros((*res.shape[:-1], ctx.n), dtype=torch.int64,
+                         device=m.device)
+    coeffs[..., ::stride] = res
     return Plaintext(data=ntt(coeffs, t), scale=scale)
 
 
 def decode_ri(ctx: CKKSContext, pt: Plaintext) -> tuple[torch.Tensor, torch.Tensor]:
-    """NTT-domain plaintext -> slot values as an (re, im) pair of
-    float64 [slots] tensors, via the double-double fractional CRT over
-    the base chain (limbs beyond it carry no information once
-    value*scale < Q_base)."""
+    """NTT-domain plaintext [..., K, N] -> slot values as an (re, im)
+    pair of float64 [..., slots] tensors, via the double-double
+    fractional CRT over the base chain (limbs beyond it carry no
+    information once value*scale < Q_base)."""
     k = min(pt.limbs, len(ctx.base_primes))
     stride = ctx.n // (2 * ctx.slots)
     device = pt.data.device
     t = ctx.tables(k, device)
-    coeffs = intt(pt.data[..., :k, :], t)[:, ::stride]   # [k, 2s]
+    coeffs = intt(pt.data[..., :k, :], t)[..., ::stride]  # [..., k, 2s]
     dc = ctx.decode_constants(k, pt.scale, device)
     c = mul_mod(coeffs, dc.inv, t.p, t.mu, t.k)          # CRT digits
-    acc_hi = torch.zeros(coeffs.shape[-1], dtype=torch.float64, device=device)
+    acc_hi = torch.zeros(c[..., 0, :].shape, dtype=torch.float64, device=device)
     acc_lo = torch.zeros_like(acc_hi)
     for i in range(k):
-        term = dd.dd_div_ff(c[i].to(torch.float64), float(dc.p_f64[i, 0]))
+        term = dd.dd_div_ff(c[..., i, :].to(torch.float64),
+                            float(dc.p_f64[i, 0]))
         acc_hi, acc_lo = dd.dd_add((acc_hi, acc_lo), term)
     r = dd.dd_round((acc_hi, acc_lo))
     frac = dd.dd_add_f((acc_hi, acc_lo), -r)
     y = dd.dd_mul(frac, (dc.q_over_scale_hi, dc.q_over_scale_lo))
     return unembed(dd.dd_to_float(y), ctx.slots)
+
+
+def decode(ctx: CKKSContext, pt: Plaintext) -> torch.Tensor:
+    """NTT-domain plaintext -> complex128 slot values [..., slots]."""
+    re, im = decode_ri(ctx, pt)
+    return torch.complex(re, im)
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,9 @@ REFERENCE_HEMPC = CKKSPreset(
     limb_bits=25, mult_depth=1,
 )
 
-# enc/dec + ct-ct mult/rescale at logN=14, L=10, two specials and
-# width-2 digit groups.
+# Full packing (8192 slots) with enc/dec + ct-ct mult/rescale at
+# logN=14: 12 data limbs (2 base + 5 scale pairs), two specials and
+# width-2 digit groups (6 digits at full depth).
 MEDIUM = CKKSPreset(
     name="medium", logn=14, slots=8192, scale_bits=50,
     limb_bits=25, mult_depth=5, special_limbs=2, digit_width=2,

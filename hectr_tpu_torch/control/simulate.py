@@ -20,10 +20,12 @@ import torch
 
 from hectr_tpu_torch.config import resolve_device
 from hectr_tpu_torch.control.mpc import mpc_gains
+from hectr_tpu_torch.control.riccati import dlqr
 from hectr_tpu_torch.control.stages import (
     actuate,
     estimate_forward,
     estimator_gains,
+    lqr_control,
     measure,
     measure_forward,
     select_target,
@@ -79,6 +81,21 @@ def make_mpc_regulator(model: LinearModel, plant: Plant, horizon: int,
     def regulator(state, xhat, uhat, xr, ur):
         du = -(K_A @ (xhat - xr) + K_B @ (uhat - ur))
         return uhat + du, state
+
+    return regulator
+
+
+def make_lqr_regulator(model: LinearModel, plant: Plant, device) -> Regulator:
+    """LQR regulator plug-in: u = -G (xhat - xr) + ur with the DLQR gain
+    (reference ctr_control, src/ctr.c:282-292 -- commented out of the
+    reference loop at src/ctr.c:423; its golden artifacts
+    cstr-lqr.{txt,bin} are reproduced by this plug-in)."""
+    Q, R = weighting_matrices(plant.xs, plant.us)
+    G, _ = dlqr(model.A, model.B, Q, R)
+    G = torch.as_tensor(G, dtype=torch.float64, device=device)
+
+    def regulator(state, xhat, uhat, xr, ur):
+        return lqr_control(G, xhat, xr, ur), state
 
     return regulator
 

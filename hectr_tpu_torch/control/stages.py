@@ -133,6 +133,12 @@ def select_target(Bd, Cd, Hr, Ginv, dhat, rsp):
     return r[:nx], r[nx:]
 
 
+def lqr_control(G, xhat, xr, ur):
+    """u = -G (xhat - xr) + ur (reference ctr_control, src/ctr.c:282-292;
+    present but commented out of the reference loop at src/ctr.c:423)."""
+    return -G @ (xhat - xr) + ur
+
+
 def estimate_forward(A, B, Bd, xhat, dhat, u):
     """Time update: xhatm' = A xhat + B u + Bd dhat; dhatm' = dhat.
 

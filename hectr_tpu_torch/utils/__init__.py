@@ -1,5 +1,6 @@
-"""Trajectory IO in the reference's formats."""
+"""Trajectory IO in the reference's formats, and section timing."""
 
+from hectr_tpu_torch.utils.pmu import Timer, timed
 from hectr_tpu_torch.utils.trajio import (
     read_traj_bin,
     traj_compare,
@@ -7,4 +8,5 @@ from hectr_tpu_torch.utils.trajio import (
     write_traj_txt,
 )
 
-__all__ = ["write_traj_txt", "write_traj_bin", "read_traj_bin", "traj_compare"]
+__all__ = ["write_traj_txt", "write_traj_bin", "read_traj_bin", "traj_compare",
+           "Timer", "timed"]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import facade_problem
 from hectr_tpu_torch import config as cfg
 from hectr_tpu_torch.ckks import keyswitch as K
 from hectr_tpu_torch.ckks import ntt as T
@@ -144,9 +145,9 @@ def test_scheme_on_cuda_bit_equal_cpu(cuda_device, monkeypatch, hybrid):
     for both: the embedding's float64 matrix product may round in the
     last ulp differently on the card, and after scaling by 2^50 that
     is one unit of a plaintext coefficient."""
-    encode_diag = G._encode_diag
-    monkeypatch.setattr(G, "_encode_diag", lambda ctx, d, k, scale, device:
-                        encode_diag(ctx, d, k, scale, CPU).to(device))
+    encode_diags = G._encode_diags
+    monkeypatch.setattr(G, "_encode_diags", lambda ctx, D, k, scale, device:
+                        encode_diags(ctx, D, k, scale, CPU).to(device))
     preset = cfg.CKKSPreset(name="cuda-scheme", logn=10, slots=16,
                             scale_bits=50, limb_bits=25, mult_depth=2,
                             special_limbs=2 if hybrid else 1,
@@ -280,3 +281,74 @@ def test_flagship_qp_sized_mul_ct(cuda_device):
     assert prod.limbs == 28 and prod.scale == ctx.delta**2 / ctx.pair_scale(30)
     assert float((re - v * w).abs().max()) < 1e-6
     assert float(im.abs().max()) < 1e-5
+
+
+# ---- full packing, negacyclic_mul, the he facade ---------------------------
+
+
+@pytest.mark.parametrize("s", [128, 8192])
+def test_fft_embedding_on_cuda_matches_cpu(cuda_device, s):
+    from hectr_tpu_torch.ckks import encoding as E
+
+    rng = np.random.default_rng(s)
+    vre = torch.from_numpy(rng.uniform(-5, 5, (3, s)))
+    vim = torch.from_numpy(rng.uniform(-5, 5, (3, s)))
+    m = E.embed_ri(vre, vim, s)
+    md = E.embed_ri(vre.to(cuda_device), vim.to(cuda_device), s)
+    assert md.device == cuda_device
+    assert float((md.cpu() - m).abs().max()) <= 1e-12
+    for got, want in zip(E.unembed(md, s), E.unembed(m, s)):
+        assert float((got.cpu() - want).abs().max()) <= 1e-12
+    re, im = E.unembed(md, s)
+    assert float((re.cpu() - vre).abs().max()) <= 1e-12
+    assert float((im.cpu() - vim).abs().max()) <= 1e-12
+
+
+def test_negacyclic_mul_on_cuda_bit_equal_cpu(cuda_device):
+    primes = chain(12)[:5]
+    a = residues(primes, (2, 5, 1 << 12), 7)
+    b = residues(primes, (2, 5, 1 << 12), 8)
+    want = T.negacyclic_mul(a, b, T.ntt_tables(1 << 12, primes, CPU))
+    ntt_cuda.reset_launches()
+    got = T.negacyclic_mul(a.to(cuda_device), b.to(cuda_device),
+                           T.ntt_tables(1 << 12, primes, cuda_device))
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES == {"ntt": 2, "intt": 1}
+    assert torch.equal(got.cpu(), want)
+
+
+def test_medium_digit_stack_bit_equal_plain(cuda_device):
+    """K1/K2 at MEDIUM's digit stack [6, 14, 2^14] (12 data + 2 special
+    primes, width-2 digits)."""
+    ctx = make_context(cfg.MEDIUM)
+    assert ctx.dnum(ctx.max_limbs) == 6 and ctx.max_limbs == 12
+    t = ctx.tables_ks(ctx.max_limbs, cuda_device)
+    a = residues(t.primes, (6, 14, 1 << 14), 14).to(cuda_device)
+    fwd = T.ntt(a, t)
+    assert torch.equal(fwd, T.ntt_plain(a, t))
+    assert torch.equal(T.intt(fwd, t), T.intt_plain(fwd, t))
+    assert torch.equal(T.intt(fwd, t), a)
+
+
+def test_he_facade_on_cuda(cuda_device):
+    """The reference's he_* call sequence (tests/test_he_facade.py) on the
+    card at logn=12: the control law to 1e-8, canary < 1e-5."""
+    from hectr_tpu_torch import he
+
+    xhat, xr, uhat, ur, K_A, K_B = facade_problem()
+    hc = he.hectx_init(12, 109, 16, 50, seed=0, device=cuda_device)
+    he.he_keypair(hc)
+    he.he_genrk(hc)
+    ntt_cuda.reset_launches()
+    cts = [he.he_enc_pk(hc, he.he_ecd(hc, v)) for v in (xhat, uhat, xr, ur)]
+    du = he.he_neg(hc, he.he_add(
+        hc, he.he_gemv(hc, K_A, he.he_sub(hc, cts[0], cts[2])),
+        he.he_gemv(hc, K_B, he.he_sub(hc, cts[1], cts[3]))))
+    u = he.he_add(hc, he.he_moddown(hc, he.he_copy_ct(hc, cts[1])), du)
+    got = he.he_dcd(hc, he.he_dec(hc, u))
+    assert got.device == cuda_device
+    assert ntt_cuda.LAUNCHES["ntt"] > 0 and ntt_cuda.LAUNCHES["intt"] > 0
+    got = got.cpu().numpy()
+    want = uhat - (K_A @ (xhat - xr) + K_B @ (uhat - ur))
+    assert np.max(np.abs(got.real - want.real)) <= 1e-8
+    assert np.max(np.abs(got.imag)) < 1e-5

@@ -107,7 +107,7 @@ def test_fused_step_bit_equal(crypto, monkeypatch):
                                            jmats))
     ju, _ = jreg(jinit(jax.random.PRNGKey(5)), XHAT, UHAT, XR, UR)
 
-    monkeypatch.setattr(TG, "_encode_diag", reference_diag_encoding(jctx))
+    monkeypatch.setattr(TG, "_encode_diags", reference_diag_encoding(jctx))
     decrypted = []
     decrypt = TS.decrypt
 

@@ -59,7 +59,7 @@ def test_constrained_regulator_two_steps_bit_equal(monkeypatch):
     ju1, jstate = jreg(jinit(jax.random.PRNGKey(7)), XHAT, UHAT, XR, UR)
     ju2, _ = jreg(jstate, XHAT, np.asarray(ju1), XR, UR)
 
-    monkeypatch.setattr(TG, "_encode_diag", reference_diag_encoding(jctx))
+    monkeypatch.setattr(TG, "_encode_diags", reference_diag_encoding(jctx))
     monkeypatch.setattr(TQ, "_const_pt", lambda c, v, k, scale, device:
                         interop.plaintext(JQ._const_pt(jctx, v, k, scale).data,
                                           scale, device))

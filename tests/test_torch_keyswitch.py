@@ -106,15 +106,15 @@ MATRICES = {
 
 
 def _reference_diag_encoding(jctx):
-    """The JAX package's own encoding of one gemv diagonal
+    """The JAX package's own encoding of a batch of gemv diagonals
     (_encode_batch, as its gemv materials make them).  Its float64
     embedding rounds differently from one call shape to another (even
     JAX's single-vector encode differs from it in the last ulp, and so
     after scaling by 2^50 by one unit), so a bit-for-bit gemv check
     feeds both sides the same diagonal plaintexts."""
-    def encode(ctx, d, k, scale, device):
-        vri = jnp.asarray(np.stack([d.real, d.imag])[None])
-        res = np.asarray(JG._encode_batch(jctx, vri, k, scale))[0]
+    def encode(ctx, D, k, scale, device):
+        vri = jnp.asarray(np.stack([D.real, D.imag], axis=1))
+        res = np.asarray(JG._encode_batch(jctx, vri, k, scale))
         return torch.from_numpy(res.astype(np.int64)).to(device)
     return encode
 
@@ -123,7 +123,7 @@ def _reference_diag_encoding(jctx):
 @pytest.mark.parametrize("shape", sorted(MATRICES))
 def test_gemv_bit_equal(setup, monkeypatch, method, shape):
     ctx, jctx, keys, _, rk, jrk, ct, jct = setup
-    monkeypatch.setattr(TG, "_encode_diag", _reference_diag_encoding(jctx))
+    monkeypatch.setattr(TG, "_encode_diags", _reference_diag_encoding(jctx))
     M = MATRICES[shape]
     if method == "bsgs":
         need = TG.bsgs_rotations(ctx.slots)

@@ -72,9 +72,9 @@ def reference_diag_encoding(jctx):
     product, which after scaling is one unit of a plaintext coefficient,
     so a bit-for-bit solver check feeds both sides these plaintexts (as
     tests/test_torch_keyswitch.py::test_gemv_bit_equal does)."""
-    def encode(ctx, d, k, scale, device):
-        vri = jnp.asarray(np.stack([d.real, d.imag])[None])
-        res = np.asarray(JG._encode_batch(jctx, vri, k, scale))[0]
+    def encode(ctx, D, k, scale, device):
+        vri = jnp.asarray(np.stack([D.real, D.imag], axis=1))
+        res = np.asarray(JG._encode_batch(jctx, vri, k, scale))
         return torch.from_numpy(res.astype(np.int64)).to(device)
     return encode
 
@@ -226,7 +226,7 @@ def test_encrypted_pgd_bit_equal(crypto, monkeypatch):
     one gradient gemv and clip) gives the JAX solver's ciphertext bit
     for bit on the same input, and the plaintext reference to 1e-4."""
     ctx, jctx, keys, jkeys, relin, jrelin, rk, jrk = crypto
-    monkeypatch.setattr(TG, "_encode_diag", reference_diag_encoding(jctx))
+    monkeypatch.setattr(TG, "_encode_diags", reference_diag_encoding(jctx))
     H, lb, ub, du_unc = _problem()
     mid, hw = (lb + ub) / 2, (ub - lb) / 2
     B0 = float(np.ceil(np.max(np.abs(du_unc - mid) / hw)))

@@ -129,9 +129,32 @@ def test_embedding_and_unembedding_close():
 
 
 def test_matrix_branch_only():
-    with pytest.raises(NotImplementedError):
-        tenc.embed_ri(torch.zeros(128, dtype=torch.float64),
-                      torch.zeros(128, dtype=torch.float64), 128)
+    """The branch boundary: up to MATRIX_MAX_SLOTS = 64 slots the matrix
+    embedding runs (the result is its matrix product, bit for bit); at
+    128 slots the FFT branch runs, and equals the JAX package's to
+    1e-12."""
+    assert tenc.MATRIX_MAX_SLOTS == jenc._MATRIX_MAX_SLOTS == 64
+    vre, vim = _slots(64, 64)
+    ReE, ImE = (torch.from_numpy(a) for a in tenc.embedding_matrices(64))
+    tre, tim = torch.from_numpy(vre), torch.from_numpy(vim)
+    assert torch.equal(tenc.embed_ri(tre, tim, 64),
+                       (ReE.T @ tre + ImE.T @ tim) / 64)
+    vre, vim = _slots(128, 128)
+    tre, tim = torch.from_numpy(vre), torch.from_numpy(vim)
+    m = tenc.embed_ri(tre, tim, 128)
+    w = torch.zeros(256, dtype=torch.float64).index_copy(
+        0, torch.from_numpy(np.concatenate(tenc.slot_indices(128))),
+        torch.cat([tre, tre]))
+    wi = torch.zeros(256, dtype=torch.float64).index_copy(
+        0, torch.from_numpy(np.concatenate(tenc.slot_indices(128))),
+        torch.cat([tim, -tim]))
+    assert torch.equal(m, tenc.cfft_inv(w, wi, 256)[0])
+    jm = jax.jit(lambda a, b: jenc.embed_ri(a, b, 128))(jnp.asarray(vre),
+                                                        jnp.asarray(vim))
+    assert np.max(np.abs(m.numpy() - np.asarray(jm))) <= 1e-12
+    re, im = tenc.unembed(m, 128)
+    assert np.max(np.abs(re.numpy() - vre)) <= 1e-12
+    assert np.max(np.abs(im.numpy() - vim)) <= 1e-12
 
 
 def jencode(jctx, vre, vim, k, scale=None):
