@@ -7,8 +7,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels from hectr_tpu_torch/csrc, one nvcc per
      source, all at once (timed)
   2. NTT kernels vs plain PyTorch, bit for bit, over real prime chains
-     (logN 8/12/15, L 1/5/24/34, batch ()/(2,)/(11,)), and their times
-     at the shapes the encrypted loop gives them
+     (logN 8/12/15, L 1/5/24/34, batch ()/(2,)/(11,)) and over every
+     logN 1-15 at 1, 3, 4, 22, 44 and 264 rows (every cluster size the
+     wrapper picks), and their times, bounds and shares of the bound at
+     the shapes the encrypted loops give them, each bit-equal and timed
+     at every cluster size (hectr_tpu_torch.bench.ntt_kernels)
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
@@ -40,8 +43,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      M v, with its key and plaintext-grid bytes, peak device memory and
      times
  10. each kernel launched on every path that uses it (K1/K2 in phases
-     3, 4, 6-9; K3 in phase 5); each phase's wall time, the kernel
-     summary, the card, and as the last line {"ok": true, "device": {...}}
+     3, 4, 6-9, with their launches by shape; K3 in phase 5); each
+     phase's wall time, the kernel summary, the card, and as the last
+     line {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ FLAGSHIP_FINAL_STATE = np.array([0.895, 321.8075, 0.7655])
 # the JAX package's constrained FLAGSHIP_QP run (its mirror is exact
 # float64 host arithmetic, so its numbers carry over)
 QP_SUMMARY = ROOT / "results" / "flagship_qp_tpu" / "summary.json"
+# batch + (L,) of the NTT sweep: 1, 3, 4, 22, 44 and 264 rows
+ROW_SHAPES = ((1,), (3,), (2, 2), (22,), (2, 22), (11, 24))
 
 
 def fail(msg: str) -> None:
@@ -90,11 +96,22 @@ def random_residues(primes, batch, n, gen, device):
     return a
 
 
+def sweep_chain(logn: int) -> tuple[int, ...]:
+    """24 NTT primes for rows of 2^logn, 30-bit and 25-bit alternating."""
+    from hectr_tpu_torch.ckks.primes import find_ntt_primes
+
+    two_n = 2 << logn
+    return tuple(p for pair in zip(find_ntt_primes(30, 12, two_n),
+                                   find_ntt_primes(25, 12, two_n))
+                 for p in pair)
+
+
 def phase_kernels(device, kernel_rows):
-    from hectr_tpu_torch.bench import cuda_time_ms as time_ms
+    from hectr_tpu_torch.bench import ntt_kernels
     from hectr_tpu_torch.ckks import ntt as T
     from hectr_tpu_torch.ckks.context import make_context
-    from hectr_tpu_torch.config import FLAGSHIP_QP, PRESETS, CKKSPreset
+    from hectr_tpu_torch.config import FLAGSHIP_QP, CKKSPreset
+    from hectr_tpu_torch.ops import ntt_cuda
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -130,34 +147,41 @@ def phase_kernels(device, kernel_rows):
     print(f"[kernels] {cases} cases bit-equal to plain (ntt, intt, "
           f"roundtrip); max |kernel - plain| = {max_err}", flush=True)
 
-    # times at the loops' shapes: the digit stack of decompose_digits
-    times = {}
-    for label, preset, shape in (
-            ("reference", "reference-hempc", (4, 5, 1 << 12)),
-            ("flagship", "flagship", (11, 24, 1 << 15)),
-            ("medium", "medium", (6, 14, 1 << 14))):
-        ctx = make_context(PRESETS[preset])
-        t = ctx.tables_ks(ctx.max_limbs, device)
-        a = random_residues(t.primes, shape[:1], shape[2], gen, device)
-        fwd = T.ntt(a, t)
-        check(torch.equal(fwd, T.ntt_plain(a, t))
-              and torch.equal(T.intt(fwd, t), T.intt_plain(fwd, t)),
-              f"kernel != plain at the {label} loop's shape {shape}")
-        row = {
-            "ntt": (time_ms(lambda: T.ntt(a, t)),
-                    time_ms(lambda: T.ntt_plain(a, t))),
-            "intt": (time_ms(lambda: T.intt(fwd, t)),
-                     time_ms(lambda: T.intt_plain(fwd, t))),
-        }
-        times[label] = row
-        for name, (k_ms, p_ms) in row.items():
-            print(f"[kernels] {name} {list(shape)} int64: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                  f"({p_ms / k_ms:.1f}x)", flush=True)
-    for name in ("ntt", "intt"):
-        kernel_rows[name].update(max_abs_err=max_err[name],
-                                 ms=times["flagship"][name][0],
-                                 plain_ms=times["flagship"][name][1])
+    # every ring size over row counts that reach every cluster size
+    clusters = set()
+    for logn in range(1, 16):
+        chain = sweep_chain(logn)
+        for lead in ROW_SHAPES:
+            t = T.ntt_tables(1 << logn, chain[:lead[-1]], device)
+            a = random_residues(t.primes, lead[:-1], 1 << logn, gen, device)
+            fwd = T.ntt(a, t)
+            inv = T.intt(fwd, t)
+            ok = (torch.equal(fwd, T.ntt_plain(a, t))
+                  and torch.equal(inv, T.intt_plain(fwd, t))
+                  and torch.equal(inv, a))
+            check(ok, f"kernel != plain at logN={logn}, shape {lead}")
+            clusters.add(ntt_cuda.geometry(a.numel() >> logn, logn).cluster)
+            cases += 1
+    check(clusters == {1, 2, 4, 8}, f"cluster sizes reached: {clusters}")
+    print(f"[kernels] logN 1-15 x rows {[int(np.prod(s)) for s in ROW_SHAPES]}"
+          f" bit-equal to plain as well ({cases} cases in all; clusters of "
+          f"{sorted(clusters)} CTAs)", flush=True)
+
+    # times at the loops' shapes, beside the bound and every cluster size
+    for rec in ntt_kernels.measure(device):
+        by_cluster = {c["cluster"]: round(c["ms"], 4)
+                      for c in rec["by_cluster"]}
+        print(f"[kernels] {rec['kernel']} {rec['shape']} ({rec['label']}; "
+              f"{rec['cluster']} CTAs x {rec['threads']} threads a row, "
+              f"passes {rec['passes']}): kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}) = {rec['share_of_bound']:.3f} of it; "
+              f"ms by CTAs a row {by_cluster}", flush=True)
+        if rec["label"] == "flagship digit stack":
+            kernel_rows[rec["kernel"]].update(
+                max_abs_err=max_err[rec["kernel"]], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=None)
 
 
 def reset_launches() -> None:
@@ -171,6 +195,17 @@ def read_launches() -> dict:
     from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda
 
     return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES}
+
+
+def print_launch_shapes(label: str, per: int, what: str) -> None:
+    """The NTT kernels' launches since the last reset, by input shape,
+    divided by `per` (the phase's steps)."""
+    from hectr_tpu_torch.ops import ntt_cuda
+
+    shapes = {f"{name} {list(shape)}": round(n / per, 3)
+              for (name, shape), n in sorted(ntt_cuda.LAUNCH_SHAPES.items())}
+    print(f"[{label}] NTT launches per {what} by shape: {json.dumps(shapes)}",
+          flush=True)
 
 
 def deviations(x, u, x_ref, u_ref) -> np.ndarray:
@@ -194,6 +229,7 @@ def run_loop(label, preset, rotations, device, card):
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t0
     launches = read_launches()
+    print_launch_shapes(label, 40, "step")
 
     check(x.shape == (41, 3) and u.shape == (40, 2), f"{label}: shapes")
     check(bool(np.isfinite(x).all() and np.isfinite(u).all()),
@@ -210,6 +246,7 @@ def run_loop(label, preset, rotations, device, card):
 
 def phase_ceiling(device, kernel_rows, card):
     """K3: the multiply-ceiling probe, and the NTT kernel's share of it."""
+    from hectr_tpu_torch.bench import HBM_BYTES_PER_S, lazy_mult_peak_per_s
     from hectr_tpu_torch.bench import vpu_ceiling as V
     from hectr_tpu_torch.ops import build
 
@@ -241,9 +278,21 @@ def phase_ceiling(device, kernel_rows, card):
     print(f"[ceiling] ntt [11, 24, 2^15] at {ntt_ms:.4f} ms = 264 x 15 x "
           f"2^14 Shoup multiplies = {rate:.4e} mult/s = {share:.4f} of the "
           f"ceiling", flush=True)
+    # the bound of one dispatch: the block in and out once, against its
+    # multiplies at the integer multiply peak
+    peak = lazy_mult_peak_per_s()
+    t_ops = V.ROWS * V.LANES * V.R_CHAIN * V.CALLS / peak * 1e3
+    t_bytes = (V.ROWS * V.LANES * 8 * 2 + V.LANES * 4 * 3) / HBM_BYTES_PER_S * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                 "bytes")
+    print(f"[ceiling] bound of one dispatch {bound:.4f} ms ({by}: "
+          f"{peak:.4e} lazy-Shoup mult/s = SMs x 64 IMAD/clock x the maximum "
+          f"SM clock / 3); the kernel at {bound / res['ms']:.4f} of it",
+          flush=True)
     kernel_rows["mulmod_chain"].update(launches=launches["mulmod_chain"],
                                        max_abs_err=err, ms=res["ms"],
-                                       plain_ms=plain)
+                                       plain_ms=plain, bound_ms=bound,
+                                       bound_by=by, library_ms=None)
 
 
 def phase_fused(device, flagship, card):
@@ -268,6 +317,7 @@ def phase_fused(device, flagship, card):
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t0
     launches = read_launches()
+    print_launch_shapes("fused", 40, "step")
     canary = float(canary)
     check(x.shape == (41, 3) and u.shape == (40, 2)
           and bool(np.isfinite(x).all() and np.isfinite(u).all()),
@@ -384,6 +434,7 @@ def phase_qp(device, card):
         horizon=horizon, return_state=True)
     torch.cuda.synchronize()
     launches = read_launches()
+    print_launch_shapes("flagship-qp", steps, "step")
     canary = float(canary)
     check(x.shape == (steps + 1, 3) and u.shape == (steps, 2)
           and bool(np.isfinite(x).all() and np.isfinite(u).all()),
@@ -451,6 +502,7 @@ def phase_he(device, card):
     torch.cuda.synchronize()
     t_seq = time.perf_counter() - t0
     launches = read_launches()
+    print_launch_shapes("he", 1, "call sequence")
     want = uhat - (K_A @ (xhat - xr) + K_B @ (uhat - ur))
     err = float(np.max(np.abs(got.real - want.real)))
     canary = float(np.max(np.abs(got.imag)))
@@ -623,6 +675,7 @@ def phase_medium(device, card):
         gemv_ms.append((time.perf_counter() - t0) * 1e3)
     got = decoded(out)
     launches = read_launches()
+    print_launch_shapes("medium", 1, "phase (keygen, chain, 3 gemvs)")
     e_gemv = float(np.abs(got.real - M @ vg).max())
     c_gemv = float(np.abs(got.imag).max())
     peak = torch.cuda.max_memory_allocated(device)

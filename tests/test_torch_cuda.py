@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import facade_problem
+from chip_smoke import ROW_SHAPES, facade_problem, sweep_chain
 from hectr_tpu_torch import config as cfg
 from hectr_tpu_torch.ckks import keyswitch as K
 from hectr_tpu_torch.ckks import ntt as T
@@ -67,6 +67,63 @@ def test_kernels_bit_equal_plain(cuda_device, logn, batch):
         assert torch.equal(fwd, T.ntt_plain(a, t)), L
         assert torch.equal(inv, T.intt_plain(fwd, t)), L
         assert torch.equal(inv, a), L
+
+
+@pytest.mark.parametrize("logn", range(1, 16))
+def test_kernels_bit_equal_plain_every_logn_and_row_count(cuda_device, logn):
+    """K1/K2 at every ring size over 1, 3, 4, 22, 44 and 264 rows of a
+    mixed 30/25-bit chain (with 0 and p-1 planted): the row counts cover
+    every cluster size the wrapper picks; each call is one launch."""
+    primes = sweep_chain(logn)
+    for shape in ROW_SHAPES:
+        L = shape[-1]
+        t = T.ntt_tables(1 << logn, primes[:L], cuda_device)
+        a = residues(primes[:L], shape + (1 << logn,), 100 * logn + L)
+        a = a.to(cuda_device)
+        before = dict(ntt_cuda.LAUNCHES)
+        shapes = dict(ntt_cuda.LAUNCH_SHAPES)
+        fwd = T.ntt(a, t)
+        inv = T.intt(fwd, t)
+        torch.cuda.synchronize()
+        assert ntt_cuda.LAUNCHES == {"ntt": before["ntt"] + 1,
+                                     "intt": before["intt"] + 1}
+        for name in ("ntt", "intt"):
+            key = (name, tuple(a.shape))
+            assert ntt_cuda.LAUNCH_SHAPES[key] == shapes.get(key, 0) + 1
+        assert torch.equal(fwd, T.ntt_plain(a, t)), shape
+        assert torch.equal(inv, T.intt_plain(fwd, t)), shape
+        assert torch.equal(inv, a), shape
+
+
+@pytest.mark.parametrize("logn", [6, 11, 12, 14, 15])
+def test_every_cluster_size_bit_equal_plain(cuda_device, logn):
+    """Every geometry the kernels accept, not only the one the wrapper
+    picks, and each fits the card (cudaOccupancyMaxActiveClusters)."""
+    primes = sweep_chain(logn)[:3]
+    t = T.ntt_tables(1 << logn, primes, cuda_device)
+    a = residues(primes, (2, 3, 1 << logn), logn).to(cuda_device)
+    want = T.ntt_plain(a, t)
+    for logc in range(ntt_cuda.max_log_cluster(logn) + 1):
+        g = ntt_cuda.launch_geometry(logn, logc)
+        assert ntt_cuda.max_active_clusters(True, g) >= 1
+        assert ntt_cuda.max_active_clusters(False, g) >= 1
+        fwd = ntt_cuda.launch_fwd(a, t, g)
+        assert torch.equal(fwd, want), logc
+        assert torch.equal(ntt_cuda.launch_inv(fwd, t, g), a), logc
+
+
+def test_wrapper_refuses_a_misaligned_view(cuda_device):
+    primes = chain(10)[:2]
+    t = T.ntt_tables(1 << 10, primes, cuda_device)
+    buf = torch.zeros(2 * (1 << 10) + 1, dtype=torch.int64, device=cuda_device)
+    a = buf[1:].view(2, 1 << 10)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 8
+    before = dict(ntt_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        ntt_cuda.ntt_cuda(a, t)
+    with pytest.raises(ValueError, match="aligned"):
+        ntt_cuda.intt_cuda(a, t)
+    assert ntt_cuda.LAUNCHES == before
 
 
 def test_plain_path_counts_no_launch(cuda_device):
