@@ -35,6 +35,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      gemvs): the control law to 1e-8, canary < 1e-5, the realized
      modulus and security estimate printed; the native CRT oracle
      (csrc/hectr_host.cpp, built with g++) on the decrypted plaintext
+     "parallel" (after 6, on phase 4's keys): the coefficient axis on a
+     local mesh of D = 2, 4, 8 shards at full width.  The sharded NTT and
+     inverse at FLAGSHIP's shapes ([22, 2^15], [11, 24, 2^15]) bit-equal
+     to ntt/intt on whole rows, and at logN = 16 and 17 (22 limbs, every
+     D that leaves a chunk of at most 2^15) to the plain transform; K1/K2
+     on the stacked [L*D, C] view bit-equal to the plain local stages,
+     at those shapes and at every stacked shape CoeffOps gives them;
+     CoeffOps rescale_pair, negacyclic_mul, rotate and the hoisted gemv at
+     FLAGSHIP bit-equal to the single-device ops and decrypted to 1e-6;
+     the sharded transform's device times by D and logN beside bound and
+     single launch; the scaling report; and two torch.distributed ranks
+     sharing the card (gloo, chunks staged through the host), each
+     bit-equal on its shard (hectr_tpu_torch.bench.run_multiproc)
   9. "medium": MEDIUM at full width (logN=14, 8192 slots, 12 limbs):
      FFT embedding on the card = the CPU's to 1e-12; encrypt/decrypt of
      8192 complex slots to 1e-6; rotations by 1 and 7; a 5-level ct x ct
@@ -43,7 +56,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      M v, with its key and plaintext-grid bytes, peak device memory and
      times
  10. each kernel launched on every path that uses it (K1/K2 in phases
-     3, 4, 6-9, with their launches by shape; K3 in phase 5); each
+     3, 4, 6-9 and "parallel", with their launches by shape; K3 in phase
+     5); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
 """
@@ -332,6 +346,194 @@ def phase_fused(device, flagship, card):
     check(canary < 1e-5, f"fused canary {canary}")
     check(bool(np.allclose(x[-1], FLAGSHIP_FINAL_STATE, rtol=1e-4, atol=0)),
           f"fused final state {x[-1]}")
+    return launches
+
+
+def phase_parallel(device, flagship, card):
+    """The coefficient axis on a local mesh at full width, and two ranks
+    sharing the card."""
+    from hectr_tpu_torch import bench
+    from hectr_tpu_torch.bench import run_multiproc
+    from hectr_tpu_torch.ckks import ntt as T
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.ckks.gemv import make_gemv
+    from hectr_tpu_torch.ckks.keyswitch import rotate
+    from hectr_tpu_torch.ckks.primes import find_ntt_primes
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.coeff_ops import CoeffOps
+    from hectr_tpu_torch.parallel.multihost import ntt_scaling_efficiency
+    from hectr_tpu_torch.parallel.ntt_shard import (clear_local_tables,
+                                                    local_ntt_fns,
+                                                    local_tables)
+
+    ctx, keys, rot_keys, _, _ = flagship
+    k = ctx.max_limbs
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    meshes = {D: LocalMesh(D) for D in (1, 2, 4, 8)}
+
+    # inputs: FLAGSHIP's data chain and digit stack, and rings of 2^16
+    # and 2^17 over 22 primes of their own
+    tks = ctx.tables_ks(k, device)
+    cases = [("data chain", ctx.tables(k, device), ()),
+             ("digit stack", tks, (ctx.dnum(k),))]
+    for logn in (16, 17):
+        primes = tuple(find_ntt_primes(30, k, 2 << logn))
+        cases.append((f"2^{logn} ring", T.ntt_tables(1 << logn, primes, device),
+                      ()))
+    inputs = [random_residues(t.primes, batch, t.n, gen, device)
+              for _, t, batch in cases]
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    v = np.linspace(-1.0, 1.0, ctx.slots)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, on(v + 0j), k),
+                   S.TorchSampler(70, device))
+    prod = S.mul_pt(ctx, ct, S.encode(ctx, on(2.0 * np.ones(ctx.slots) + 0j),
+                                      k, scale=ctx.pair_scale(k)))
+    a, b = inputs[0], random_residues(ctx.data_primes, (), ctx.n, gen, device)
+    Mg = np.zeros((ctx.slots, ctx.slots))
+    idx = np.arange(ctx.slots)
+    Mg[idx, idx] = 0.5
+    Mg[idx, (idx + 3) % ctx.slots] = -0.25
+
+    # the sharded path alone, its launches counted; the single-device
+    # references and the comparisons follow
+    reset_launches()
+    t0 = time.perf_counter()
+    sharded = {}
+    for (label, t, _), x in zip(cases, inputs):
+        for D, mesh in meshes.items():
+            if t.n // D > 1 << 15 or D == 1:
+                continue
+            fwd, inv = local_ntt_fns(t, mesh)
+            got = fwd(mesh.shard(x))
+            sharded[label, D] = (mesh.gather(got), mesh.gather(inv(got)))
+    ops = {D: CoeffOps(ctx, meshes[D]) for D in (2, 4, 8)}
+    scheme = {D: (o.rescale_pair(prod), o.negacyclic_mul(a, b),
+                  o.rotate(ct, 1, rot_keys),
+                  o.make_gemv(Mg, k, rot_keys, device)(ct))
+              for D, o in ops.items()}
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter() - t0
+    launches = read_launches()
+    print_launch_shapes("parallel", 1, "phase")
+
+    n_cases = 0
+    for (label, t, _), x in zip(cases, inputs):
+        whole = t.n <= 1 << 15
+        ref = T.ntt(x, t) if whole else T.ntt_plain(x, t)
+        ref_inv = T.intt(ref, t) if whole else T.intt_plain(ref, t)
+        check(torch.equal(ref_inv, x), f"parallel: reference round trip, {label}")
+        for D, mesh in meshes.items():
+            if (label, D) not in sharded:
+                continue
+            fwd_got, inv_got = sharded.pop((label, D))
+            check(torch.equal(fwd_got, ref),
+                  f"parallel: sharded ntt != single device, {label}, D={D}")
+            check(torch.equal(inv_got, x),
+                  f"parallel: sharded round trip, {label}, D={D}")
+            # the kernels on the stacked [L*D, C] view against the plain
+            # local stages over the gathered tables
+            lt = local_tables(t, mesh)
+            rows = mesh.shard(x).flatten(-3, -2)
+            check(torch.equal(T.ntt(rows, lt), T.ntt_plain(rows, lt))
+                  and torch.equal(T.intt(rows, lt), T.intt_plain(rows, lt)),
+                  f"parallel: stacked kernels != plain local stages, {label}, "
+                  f"D={D}")
+            n_cases += 1
+    # the same at the other stacked shapes and tables CoeffOps launches:
+    # a leading 2 (the ciphertext's halves) over one chain row and the
+    # special rows (rescale and mod-down inverses) and over 20-22 chain
+    # rows (their forward transforms)
+    stacked = [ctx.tables_row(k - 1, device), ctx.tables_row(k - 2, device),
+               ctx.tables_special(device), ctx.tables(k - 2, device),
+               ctx.tables(k - 1, device), ctx.tables(k, device)]
+    n_stacked = 0
+    for t in stacked:
+        x = random_residues(t.primes, (2,), t.n, gen, device)
+        for D in (2, 4, 8):
+            lt = local_tables(t, meshes[D])
+            rows = meshes[D].shard(x).flatten(-3, -2)
+            check(torch.equal(T.ntt(rows, lt), T.ntt_plain(rows, lt))
+                  and torch.equal(T.intt(rows, lt), T.intt_plain(rows, lt)),
+                  f"parallel: stacked kernels != plain local stages at "
+                  f"{list(rows.shape)}")
+            n_stacked += 1
+    print(f"[parallel] K1/K2 bit-equal to the plain local stages at CoeffOps' "
+          f"stacked shapes too ({n_stacked} cases: [2, L*D, 2^15/D] for L = 1 "
+          f"(two chain rows), {len(ctx.special_primes)} (special rows), "
+          f"{k - 2}, {k - 1}, {k} at D = 2, 4, 8)", flush=True)
+    print(f"[parallel] sharded ntt/intt on a local mesh bit-equal to the "
+          f"single device ({n_cases} cases: FLAGSHIP [{k}, 2^15] and "
+          f"[{ctx.dnum(k)}, {len(tks.primes)}, 2^15] at D = 2, 4, 8 against "
+          f"ntt/intt on whole rows; [{k}, 2^16] at D = 2, 4, 8 and "
+          f"[{k}, 2^17] at D = 4, 8 against the plain transform), round "
+          f"trips exact, K1/K2 on the stacked view bit-equal to the plain "
+          f"local stages", flush=True)
+
+    want = (S.rescale_pair(ctx, prod),
+            T.negacyclic_mul(a, b, ctx.tables(k, device)),
+            rotate(ctx, ct, 1, rot_keys),
+            make_gemv(ctx, Mg, k, rot_keys, device, method="diag")(ct))
+    names = ("rescale_pair", "negacyclic_mul", "rotate", "gemv")
+    for D, got in scheme.items():
+        for name, g, w in zip(names, got, want):
+            same = (torch.equal(g, w) if name == "negacyclic_mul" else
+                    torch.equal(g.data, w.data) and g.scale == w.scale)
+            check(same, f"parallel: CoeffOps.{name} != single device at D={D}")
+    errs = {}
+    for name, g, expect in (("rescale_pair", scheme[8][0], 2.0 * v),
+                            ("rotate", scheme[8][2], np.roll(v, -1)),
+                            ("gemv", scheme[8][3], Mg @ v)):
+        dec = S.decode(ctx, S.decrypt(ctx, keys, g)).cpu().numpy()
+        errs[name] = float(np.abs(dec.real - expect).max())
+        check(errs[name] <= 1e-6 and float(np.abs(dec.imag).max()) < 1e-5,
+              f"parallel: decrypted {name} off by {errs[name]}")
+    print(f"[parallel] CoeffOps at FLAGSHIP (logN=15, {k} + "
+          f"{len(ctx.special_primes)} primes), D = 2, 4, 8: rescale_pair, "
+          f"negacyclic_mul, rotate(1), hoisted gemv (diagonals 0, 3) bit-equal "
+          f"to the single-device ops; decrypted max err {errs}; the sharded "
+          f"path alone {t_sharded:.2f} s; launches {launches}", flush=True)
+    del sharded, scheme, want
+
+    # device times of the sharded forward transform (CUDA-graph replay)
+    peak = bench.lazy_mult_peak_per_s()
+    for (label, t, batch), x in zip(cases, inputs):
+        logn = t.n.bit_length() - 1
+        rows = x.numel() >> logn
+        bound, by = bench.ntt_bound(rows, len(t.primes), logn, peak)
+        ms = {}
+        for D, mesh in meshes.items():
+            if t.n // D > 1 << 15:
+                continue
+            fwd, _ = local_ntt_fns(t, mesh)
+            xs = mesh.shard(x)
+            ms[D] = round(bench.cuda_graph_time_ms(lambda: fwd(xs)), 4)
+        single = (f"; single K1 launch "
+                  f"{bench.cuda_graph_time_ms(lambda: T.ntt(x, t)):.4f} ms"
+                  if logn <= 15 else "; no single launch above 2^15")
+        print(f"[parallel] sharded ntt {list(x.shape)} ({label}) ms by D "
+              f"{json.dumps(ms)}; bound {bound:.4f} ms ({by}){single} on "
+              f"{card}", flush=True)
+
+    for logn, D in ((15, 8), (17, 4)):
+        rep = ntt_scaling_efficiency(logn, k, meshes[D], device)
+        print(f"[parallel] scaling report: {json.dumps(rep)}", flush=True)
+
+    # two ranks sharing the card
+    rec = run_multiproc.launch(2, "cuda", 15, 4, "reference-hempc", 300.0)
+    check(rec["ok"] and rec["bitexact_per_shard"] and rec["ranks"] == 2,
+          f"parallel: two-rank run {rec}")
+    print(f"[parallel] two ranks on one card ({rec['mesh']}): sharded ntt "
+          f"{rec['ntt']} and {rec['scheme_ops']} bit-equal on each rank's "
+          f"shard; paired exchange of {rec['exchange_bytes']} B at "
+          f"{[round(x, 4) for x in rec['exchange_gb_per_s']]} GB/s per rank "
+          f"through the host (not a link between cards: it says nothing "
+          f"about NVLink); {rec['elapsed_s']} s on {card}", flush=True)
+    # this phase's local tables (every ring at every D) are as large as the
+    # rings' own: later phases get that device memory back
+    clear_local_tables()
     return launches
 
 
@@ -758,6 +960,8 @@ def main() -> None:
         phase_ceiling(device, kernel_rows, card)
     with timer.section("fused"):
         launches_fused = phase_fused(device, flagship, card)
+    with timer.section("parallel"):
+        launches_par = phase_parallel(device, flagship, card)
     del flagship
     with timer.section("flagship-qp"):
         launches_qp = phase_qp(device, card)
@@ -767,7 +971,8 @@ def main() -> None:
         launches_medium = phase_medium(device, card)
 
     loops = (("reference-hempc", launches_ref), ("flagship", launches_flag),
-             ("fused", launches_fused), ("flagship-qp", launches_qp),
+             ("fused", launches_fused), ("parallel", launches_par),
+             ("flagship-qp", launches_qp),
              ("he", launches_he), ("medium", launches_medium))
     for label, launches in loops:
         for kname in ("ntt", "intt"):

@@ -7,7 +7,9 @@ never jax.  Every Pallas kernel of the JAX package has a hand-written
 CUDA kernel for Hopper here (``hectr_tpu_torch.ops``): the NTT pair, on
 every CKKS path, and the modular-multiply ceiling probe
 (``hectr_tpu_torch.bench.vpu_ceiling``).  CUDA tensors go to the
-kernels, CPU tensors to their plain PyTorch versions.
+kernels, CPU tensors to their plain PyTorch versions.  A ciphertext's
+coefficient axis can be sharded over a mesh, on one device or over
+``torch.distributed`` ranks (``hectr_tpu_torch.parallel``).
 """
 
 __version__ = "0.1.0"

@@ -3,25 +3,31 @@
 
 Usage:  python -m hectr_tpu_torch.cli <subcommand> [--out-dir results]
         [--preset reference-hempc|flagship|...] [--steps 40] [--seed 0]
-        [--device cuda] [--plot]
+        [--device cuda] [--plot] [--logn 12] [--depth 1]
 
 Subcommands: cstr-mpc, cstr-hempc and cstr-lqr (closed loops on
 ``--device``, which defaults to ``cuda`` and fails when CUDA is missing;
-pass ``--device cpu`` to run on the CPU on purpose), and the host-only
-quadprog, cstr-ode, cstr-cmp, mpc-tracking, inverted-pendulum-mpc-control
-and security, which need no device.  ``--plot`` writes a PDF beside the
-trajectory of each closed loop.
+pass ``--device cpu`` to run on the CPU on purpose), scaling (the
+coefficient-sharded NTT against the single-device one at ``--logn`` and
+2 + 2 x ``--depth`` limbs, one JSON line; over the ranks of
+HECTR_COORDINATOR / HECTR_NUM_PROCS / HECTR_PROC_ID when set, else over a
+local mesh on ``--device``), and the host-only quadprog, cstr-ode,
+cstr-cmp, mpc-tracking, inverted-pendulum-mpc-control and security, which
+need no device.  ``--plot`` writes a PDF beside the trajectory of each
+closed loop.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import pathlib
 import subprocess
 import sys
 
 import numpy as np
 import torch
+import torch.distributed
 
 from hectr_tpu_torch.config import PRESETS, resolve_device
 
@@ -267,6 +273,30 @@ def cmd_quadprog(args) -> None:
         raise SystemExit(r.returncode)
 
 
+def cmd_scaling(args) -> None:
+    """NTT scaling-efficiency report, one JSON line.  After
+    ``init_distributed`` (one process per rank, a power of two of them)
+    the mesh spans the ranks; a single process measures a local mesh of
+    as few shards (at least 2) as keep a chunk within one kernel row."""
+    from hectr_tpu_torch.ops.ntt_cuda import MAX_LOGN
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.multihost import (
+        init_distributed, make_pod_mesh, ntt_scaling_efficiency)
+
+    # under NCCL it picks this rank's card
+    distributed = init_distributed(device=args.device)
+    device = require_device(args.device)
+    if distributed:
+        mesh = make_pod_mesh()
+    else:
+        mesh = LocalMesh(max(2, 1 << max(0, args.logn - MAX_LOGN)))
+    rep = ntt_scaling_efficiency(args.logn, args.depth * 2 + 2, mesh, device)
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in rep.items()}))
+    if distributed:
+        torch.distributed.destroy_process_group()
+
+
 def cmd_security(args) -> None:
     """Security accounting for every registered CKKS preset (HE
     standard table)."""
@@ -286,6 +316,7 @@ COMMANDS = {
     "cstr-hempc": lambda a: cmd_cstr_mpc(a, encrypted=True),
     "cstr-cmp": cmd_cstr_cmp,
     "cstr-lqr": cmd_cstr_lqr,
+    "scaling": cmd_scaling,
     "security": cmd_security,
 }
 
@@ -301,6 +332,10 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--plot", action="store_true")
+    ap.add_argument("--logn", type=int, default=12,
+                    help="ring size of the scaling report")
+    ap.add_argument("--depth", type=int, default=1,
+                    help="levels of the scaling report's chain")
     args = ap.parse_args(argv)
     pathlib.Path(args.out_dir).mkdir(parents=True, exist_ok=True)
     COMMANDS[args.subcommand](args)

@@ -409,3 +409,96 @@ def test_he_facade_on_cuda(cuda_device):
     want = uhat - (K_A @ (xhat - xr) + K_B @ (uhat - ur))
     assert np.max(np.abs(got.real - want.real)) <= 1e-8
     assert np.max(np.abs(got.imag)) < 1e-5
+
+
+# ---- the coefficient mesh on the card (hectr_tpu_torch.parallel) ---------
+
+
+@pytest.mark.parametrize("size", [2, 4, 8])
+@pytest.mark.parametrize("logn", [4, 8, 15])
+def test_stacked_kernels_bit_equal_plain_local_stages(cuda_device, logn, size):
+    """K1/K2 on the stacked [..., L*D, C] view over the gathered local
+    tables (row l*D + s holds limb l of shard s) against the plain local
+    stages, one launch each; and the whole sharded transform against the
+    kernels on whole rows."""
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import (local_ntt_fns,
+                                                    local_tables)
+
+    primes = sweep_chain(logn)[:5]
+    t = T.ntt_tables(1 << logn, primes, cuda_device)
+    a = residues(primes, (2, 5, 1 << logn), logn + size).to(cuda_device)
+    mesh = LocalMesh(size)
+    lt = local_tables(t, mesh)
+    rows = mesh.shard(a).flatten(-3, -2)
+    assert rows.shape == (2, 5 * size, (1 << logn) // size)
+    before = dict(ntt_cuda.LAUNCHES)
+    fwd = T.ntt(rows, lt)
+    inv = T.intt(rows, lt)
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES == {"ntt": before["ntt"] + 1,
+                                 "intt": before["intt"] + 1}
+    assert torch.equal(fwd, T.ntt_plain(rows, lt))
+    assert torch.equal(inv, T.intt_plain(rows, lt))
+    fwd_fn, inv_fn = local_ntt_fns(t, mesh)
+    got = fwd_fn(mesh.shard(a))
+    assert torch.equal(mesh.gather(got), T.ntt(a, t))
+    assert torch.equal(mesh.gather(inv_fn(got)), a)
+
+
+@pytest.mark.parametrize("logn,size", [(16, 2), (17, 4), (17, 8)])
+def test_large_ring_on_a_local_mesh(cuda_device, logn, size):
+    """Rings above one kernel row: ntt itself refuses them on the card,
+    the local mesh carries them, bit-equal to the plain transform."""
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import local_ntt_fns
+
+    primes = tuple(find_ntt_primes(30, 3, 2 << logn))
+    t = T.ntt_tables(1 << logn, primes, cuda_device)
+    a = residues(primes, (3, 1 << logn), logn).to(cuda_device)
+    with pytest.raises(ValueError, match="supports"):
+        T.ntt(a, t)
+    mesh = LocalMesh(size)
+    fwd_fn, inv_fn = local_ntt_fns(t, mesh)
+    before = dict(ntt_cuda.LAUNCHES)
+    got = fwd_fn(mesh.shard(a))
+    back = inv_fn(got)
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES == {"ntt": before["ntt"] + 1,
+                                 "intt": before["intt"] + 1}
+    assert torch.equal(mesh.gather(got), T.ntt_plain(a, t))
+    assert torch.equal(mesh.gather(back), a)
+
+
+def test_coeff_ops_on_cuda_bit_equal_single_device(cuda_device):
+    """rescale_pair, rotate and the hoisted gemv over 4 shards on the card
+    against the single-device ops there (hybrid preset, logN = 10)."""
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.coeff_ops import CoeffOps
+
+    ctx = make_context(cfg.CKKSPreset(
+        name="cuda-coeff", logn=10, slots=16, scale_bits=50, limb_bits=25,
+        mult_depth=2, special_limbs=2, digit_width=2))
+    k = ctx.max_limbs
+    keys = S.keygen(ctx, S.TorchSampler(0, cuda_device), cuda_device)
+    rk = K.gen_rotation_keys(ctx, keys, S.TorchSampler(1, cuda_device),
+                             rotations=[1, 3])
+    v = torch.linspace(-1, 1, 16, dtype=torch.float64, device=cuda_device)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (v, torch.zeros_like(v)), k),
+                   S.TorchSampler(2, cuda_device))
+    ops = CoeffOps(ctx, LocalMesh(4))
+    assert torch.equal(ops.rotate(ct, 1, rk).data, K.rotate(ctx, ct, 1, rk).data)
+    M = np.zeros((16, 16))
+    idx = np.arange(16)
+    M[idx, idx] = 0.5
+    M[idx, (idx + 3) % 16] = -0.25
+    got = ops.make_gemv(M, k, rk, cuda_device)(ct)
+    want = G.make_gemv(ctx, M, k, rk, cuda_device, "diag")(ct)
+    assert torch.equal(got.data, want.data) and got.scale == want.scale
+    dec = S.decode(ctx, S.decrypt(ctx, keys, got)).cpu().numpy()
+    assert np.max(np.abs(dec.real - M @ v.cpu().numpy())) < 1e-6
+    pt2 = S.encode(ctx, (torch.full_like(v, 2.0), torch.zeros_like(v)), k,
+                   scale=ctx.pair_scale(k))
+    prod = S.mul_pt(ctx, ct, pt2)
+    assert torch.equal(ops.rescale_pair(prod).data,
+                       S.rescale_pair(ctx, prod).data)
