@@ -47,7 +47,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      the sharded transform's device times by D and logN beside bound and
      single launch; the scaling report; and two torch.distributed ranks
      sharing the card (gloo, chunks staged through the host), each
-     bit-equal on its shard (hectr_tpu_torch.bench.run_multiproc)
+     bit-equal on its shard (hectr_tpu_torch.bench.run_multiproc); then
+     encrypt -> mul_pt -> rescale_pair -> decrypt at logN = 16 and 17
+     through the scheme ops alone (ckks.ntt's route above 2^15) to 1e-6,
+     with the peak memory and the bytes the route's cached tables hold
+     "batch" (after "parallel", FLAGSHIP on phase 4's keys): B loops
+     through one regulator, every op one launch for the batch.
+     REFERENCE_HEMPC: simulate_batch over 16 loops x 40 steps (loop b's
+     disturbance scaled by 1 + b/16), each <= 5e-10 per channel from
+     its plaintext twin, every canary < 1e-5, loop 0 = golden
+     cstr-hempc.bin to 1e-6; the serving curve at B = 1, 16, 64, every
+     row's u within 1e-8 of the plaintext law on its inputs, NTT
+     launches per batched step equal at every B.  FLAGSHIP fused over 8
+     loops x 40 steps: <= 2e-9, canaries < 1e-5, loop 0's final state.
+     Rows 0 and B-1 of a 4-step run against the 1-D regulator with the
+     same draws: ciphertexts bit-equal where the encodes agree, u to
+     1e-12.  Aggregate steps/s and peak device memory for each
   9. "medium": MEDIUM at full width (logN=14, 8192 slots, 12 limbs):
      FFT embedding on the card = the CPU's to 1e-12; encrypt/decrypt of
      8192 complex slots to 1e-6; rotations by 1 and 7; a 5-level ct x ct
@@ -56,7 +71,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      M v, with its key and plaintext-grid bytes, peak device memory and
      times
  10. each kernel launched on every path that uses it (K1/K2 in phases
-     3, 4, 6-9 and "parallel", with their launches by shape; K3 in phase
+     3, 4, 6-9, "parallel" and "batch", with their launches by shape; K3 in phase
      5); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
@@ -534,7 +549,254 @@ def phase_parallel(device, flagship, card):
     # this phase's local tables (every ring at every D) are as large as the
     # rings' own: later phases get that device memory back
     clear_local_tables()
+    for logn in (16, 17):
+        large_ring_chain(logn, device, card)
     return launches
+
+
+def large_ring_chain(logn, device, card):
+    """encrypt -> mul_pt -> rescale_pair -> decrypt at a ring above 2^15
+    through the scheme ops alone (ckks.ntt routes every transform to the
+    sharded one): the decrypted product to 1e-6, the chain's peak device
+    memory above what was held before it, and the bytes the route's cached local tables hold."""
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.ckks.context import make_context
+    from hectr_tpu_torch.config import CKKSPreset
+    from hectr_tpu_torch.parallel.ntt_shard import clear_local_tables
+
+    ctx = make_context(CKKSPreset(name=f"he-{logn}-109", logn=logn, slots=16,
+                                  scale_bits=50, limb_bits=25, mult_depth=1))
+    k = ctx.max_limbs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    keys = S.keygen(ctx, S.TorchSampler(0, device), device)
+    v = torch.linspace(-1, 1, 16, dtype=torch.float64, device=device)
+    w = torch.linspace(0.5, -0.5, 16, dtype=torch.float64, device=device)
+    zero = torch.zeros_like(v)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (v, zero), k),
+                   S.TorchSampler(1, device))
+    pt = S.encode(ctx, (w, zero), k, ctx.pair_scale(k))
+    out = S.rescale_pair(ctx, S.mul_pt(ctx, ct, pt))
+    re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, out))
+    err = float((re - v * w).abs().max())
+    err_im = float(im.abs().max())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    del ct, pt, out, re, im
+    held = torch.cuda.memory_allocated(device)
+    clear_local_tables()
+    cached = held - torch.cuda.memory_allocated(device)
+    print(f"[parallel] scheme ops at logN={logn} ({k} + "
+          f"{len(ctx.special_primes)} primes) on the card through ckks.ntt's "
+          f"sharded route: decrypted product off by {err:.3e} (imag "
+          f"{err_im:.3e}); peak device memory {peak - base} B above the "
+          f"{base} B held before; the route's cached local tables held "
+          f"{cached} B on {card}", flush=True)
+    check(err < 1e-6 and err_im < 1e-6,
+          f"logN={logn} chain decrypted off by {err}, {err_im}")
+    check(cached > 0, f"logN={logn}: no local tables were cached")
+
+
+class RowDraws:
+    """Encryption draws replayed per row: row b from its own numpy
+    generator, so a 1-D run given one row's generator draws what that
+    row of the batched run draws."""
+
+    def __init__(self, seeds, device):
+        self.rngs = [np.random.default_rng(s) for s in seeds]
+        self.device = device
+
+    def encryption(self, ctx, k, batch, device):
+        check(int(np.prod(batch, dtype=np.int64)) == len(self.rngs),
+              f"replay sampler of {len(self.rngs)} rows given batch {batch}")
+        rows = []
+        for rng in self.rngs:
+            r = rng.integers(0, 4, ctx.n)
+            rows.append(((r == 3).astype(np.int64) - (r == 0),
+                         np.round(3.2 * rng.normal(size=ctx.n)).astype(np.int64),
+                         np.round(3.2 * rng.normal(size=ctx.n)).astype(np.int64)))
+        return tuple(torch.from_numpy(np.stack(d)).reshape(*batch, ctx.n)
+                     .to(self.device) for d in zip(*rows))
+
+
+def spy_regulator(run):
+    """run() with scheme.encrypt / decrypt recording their plaintexts in,
+    ciphertexts out and ciphertexts in: (run's result, records)."""
+    from hectr_tpu_torch.ckks import scheme as S
+
+    rec = {"pt": [], "ct": [], "dec": []}
+    encrypt, decrypt = S.encrypt, S.decrypt
+
+    def enc_spy(ctx, keys, pt, sampler):
+        ct = encrypt(ctx, keys, pt, sampler)
+        rec["pt"].append(pt.data.clone())
+        rec["ct"].append(ct.data.clone())
+        return ct
+
+    def dec_spy(ctx, keys, ct):
+        rec["dec"].append(ct.data.clone())
+        return decrypt(ctx, keys, ct)
+
+    S.encrypt, S.decrypt = enc_spy, dec_spy
+    try:
+        out = run()
+    finally:
+        S.encrypt, S.decrypt = encrypt, decrypt
+    return out, rec
+
+
+def rows_equal_1d(label, reg, B, steps, device):
+    """Rows 0 and B-1 of a `steps`-step batched run against the 1-D
+    regulator given the same draws: uploaded and decrypted ciphertexts
+    bit-equal wherever the row's encodes equal the 1-D encodes (the
+    card's float64 embedding products may round an ulp apart), decoded
+    u within 1e-12 everywhere."""
+    from hectr_tpu_torch.bench import batch as BB
+    from hectr_tpu_torch.hempc import hempc_init_state
+
+    xs, u0 = BB.protocol_inputs(B, steps, device, seed=5)
+    seeds = [1000 + b for b in range(B)]
+    (us, _), rec = spy_regulator(lambda: BB.run_rounds(
+        reg, hempc_init_state(RowDraws(seeds, device), device, (B,)), xs, u0,
+        1))
+    agree, total, err = 0, 0, 0.0
+    for b in (0, B - 1):
+        (us1, _), rec1 = spy_regulator(lambda: BB.run_rounds(
+            reg, hempc_init_state(RowDraws([seeds[b]], device), device),
+            xs[b], u0[b], 1))
+        err = max(err, float((us[:, b] - us1).abs().max()))
+        per = len(rec1["pt"]) // steps
+        for i in range(steps):
+            total += 1
+            same = all(torch.equal(rec["pt"][j][b], rec1["pt"][j])
+                       for j in range(i * per, (i + 1) * per))
+            if same:
+                agree += 1
+                check(all(torch.equal(rec["ct"][j][b], rec1["ct"][j])
+                          for j in range(i * per, (i + 1) * per))
+                      and torch.equal(rec["dec"][i][b], rec1["dec"][i]),
+                      f"{label}: row {b} step {i} ciphertexts differ from "
+                      f"the 1-D run with equal encodes")
+    print(f"[batch] {label} rows 0 and {B - 1} vs the 1-D regulator with the "
+          f"same draws over {steps} steps: encodes equal in {agree} of "
+          f"{total} row-steps (ciphertexts bit-equal there), max |u - u_1d| "
+          f"{err:.3e}", flush=True)
+    check(err <= 1e-12, f"{label}: batched row vs 1-D u differ by {err}")
+
+
+def phase_batch(device, flagship, card):
+    """The batch axis: B independent loops through one regulator, every
+    op one launch for the whole batch."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.bench import batch as BB
+    from hectr_tpu_torch.ckks.scheme import TorchSampler
+    from hectr_tpu_torch.control.simulate import (make_mpc_regulator,
+                                                  simulate_batch)
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.hempc.fused import (make_fused_materials,
+                                             make_fused_regulator)
+    from hectr_tpu_torch.ops import ntt_cuda
+    from hectr_tpu_torch.utils import read_traj_bin
+
+    model, plant = cli.cstr_setup()
+    total = {"ntt": 0, "intt": 0}
+
+    def tally():
+        for k in total:
+            total[k] += ntt_cuda.LAUNCHES[k]
+
+    def closed_loop(label, reg, B, bar):
+        p = np.stack([cli.disturbance(40) * (1 + b / B) for b in range(B)])
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        x, u, (_, canary) = simulate_batch(
+            model, plant, p, 1.0, 40, device, regulator=reg,
+            regulator_state=hempc_init_state(TorchSampler(2, device), device,
+                                             (B,)), horizon=4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tally()
+        launches = dict(ntt_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device)
+        x_pt, u_pt, _ = simulate_batch(model, plant, p, 1.0, 40, device,
+                                       horizon=4)
+        check(x.shape == (B, 41, 3) and u.shape == (B, 40, 2)
+              and bool(np.isfinite(x).all() and np.isfinite(u).all()),
+              f"{label}: shapes or non-finite trajectories")
+        dev = np.stack([deviations(x[b], u[b], x_pt[b], u_pt[b])
+                        for b in range(B)])
+        canary = canary.cpu().numpy()
+        print(f"[batch] {label}: {B} loops x 40 steps in {wall:.3f} s = "
+              f"{B * 40 / wall:.2f} loop-steps/s aggregate, "
+              f"{40 / wall:.2f} per loop; NTT launches per batched step "
+              f"{ {k: v / 40 for k, v in launches.items()} }; peak device "
+              f"memory {peak} B on {card}", flush=True)
+        print(f"[batch] {label}: max |encrypted - plaintext twin| per channel "
+              f"over the loops {dev.max(axis=0).tolist()}; canaries "
+              f"{canary.min():.3e}..{canary.max():.3e}; loop 0 final state "
+              f"{x[0, -1].tolist()}", flush=True)
+        check(bool((dev <= bar).all()), f"{label}: deviation {dev.max(0)}")
+        check(bool((canary < 1e-5).all()), f"{label}: canary {canary.max()}")
+        return x, u
+
+    # REFERENCE_HEMPC: 16 loops, loop b's disturbance scaled by 1 + b/16
+    ref = BB.reference_setup(device)
+    ctx, keys, rk = ref[:3]
+    reg = make_hempc_regulator(ctx, keys, rk, model, plant, 4)
+    x, u = closed_loop("reference-hempc B=16", reg, 16, 5e-10)
+    golden_x, golden_u = read_traj_bin(ROOT / "tests/golden/cstr-hempc.bin")
+    golden = np.hstack([golden_x, golden_u])
+    ours = np.hstack([x[0], np.vstack([u[0], u[0, -1:]])])
+    rel = np.max(np.abs(ours - golden), axis=0) / np.max(np.abs(golden), axis=0)
+    print(f"[batch] reference-hempc loop 0 vs golden cstr-hempc.bin: max "
+          f"relative error per channel {rel.tolist()}", flush=True)
+    check(bool((rel < 1e-6).all()), f"batch golden mismatch {rel}")
+
+    # the serving curve: every row's u against the plaintext law on its
+    # own inputs, NTT launches per batched step the same at every B
+    law = make_mpc_regulator(model, plant, 4, device)
+    per_step = {}
+    for B in (1, 16, 64):
+        xs, u0 = BB.protocol_inputs(B, 4, device)
+        state = hempc_init_state(TorchSampler(3, device), device, (B,))
+        BB.run_rounds(reg, state, xs[..., :1, :], u0, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        us, state = BB.run_rounds(reg, state, xs, u0, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tally()
+        per_step[B] = {k: v / 4 for k, v in ntt_cuda.LAUNCHES.items()}
+        print_launch_shapes(f"batch B={B}", 4, "batched step")
+        uhat = torch.cat([u0[:, None], us[0, :, :-1]], dim=1)
+        zx = torch.zeros(3, dtype=torch.float64, device=device)
+        zu = torch.zeros(2, dtype=torch.float64, device=device)
+        want, _ = law(None, xs, uhat, zx, zu)
+        err = float((us[0] - want).abs().max())
+        print(f"[batch] reference-hempc serving B={B}: {4 * B / wall:.2f} "
+              f"steps/s aggregate, {4 / wall:.2f} per loop; NTT launches per "
+              f"batched step {per_step[B]}; max |u - plaintext law| {err:.3e}; "
+              f"peak device memory {torch.cuda.max_memory_allocated(device)} B "
+              f"on {card}", flush=True)
+        check(err <= 1e-8, f"batch serving B={B}: u off the law by {err}")
+    check(per_step[1] == per_step[16] == per_step[64],
+          f"NTT launches per step grow with the batch: {per_step}")
+    rows_equal_1d("reference-hempc B=16", reg, 16, 4, device)
+    del ref, reg
+
+    # FLAGSHIP fused on phase 4's keys: 8 loops
+    ctx, keys, rk, _, _ = flagship
+    mats = make_fused_materials(ctx, rk, model, plant, 4, device)
+    reg = make_fused_regulator(ctx, keys, model, plant, 4, mats)
+    x, _ = closed_loop("flagship-fused B=8", reg, 8, 2e-9)
+    check(bool(np.allclose(x[0, -1], FLAGSHIP_FINAL_STATE, rtol=1e-4, atol=0)),
+          f"batch fused loop 0 final state {x[0, -1]}")
+    rows_equal_1d("flagship-fused B=8", reg, 8, 4, device)
+    return total
 
 
 def phase_qp(device, card):
@@ -962,6 +1224,8 @@ def main() -> None:
         launches_fused = phase_fused(device, flagship, card)
     with timer.section("parallel"):
         launches_par = phase_parallel(device, flagship, card)
+    with timer.section("batch"):
+        launches_batch = phase_batch(device, flagship, card)
     del flagship
     with timer.section("flagship-qp"):
         launches_qp = phase_qp(device, card)
@@ -972,6 +1236,7 @@ def main() -> None:
 
     loops = (("reference-hempc", launches_ref), ("flagship", launches_flag),
              ("fused", launches_fused), ("parallel", launches_par),
+             ("batch", launches_batch),
              ("flagship-qp", launches_qp),
              ("he", launches_he), ("medium", launches_medium))
     for label, launches in loops:

@@ -1,0 +1,305 @@
+"""Batch serving on the card: one regulator over B independent loops.
+
+    python -m hectr_tpu_torch.bench.batch
+
+The counterpart of the JAX package's batch benches, on its protocols:
+
+  * REFERENCE_HEMPC (logN=12, 15 rotation keys), the reference-shaped
+    regulator at B = 1, 4, 16, 64: rounds of 16 steps, u fed back, one
+    warm round then 2 timed (``bench.py`` ``bench_hempc_batch_curve``);
+  * FLAGSHIP (logN=15, BSGS keys), the fused regulator at B = 1, 4, 8,
+    16, 32: rounds of 8 steps, one warm then 3 timed
+    (``scripts/bench_fused_batch.py``, which stops at 8);
+  * enc / reg / dec per phase at REFERENCE_HEMPC, B = 1 and 64
+    (``scripts/bench_batch_phases.py``);
+  * B = 64 ct x ct multiplies + rescale at logN=14
+    (``bench.py`` ``bench_ctct_mult_logn14``).
+
+For each B it prints aggregate and per-loop steps/s (host clock around
+the timed rounds, ending in a synchronize), the K1/K2 launches per
+batched step by shape, every CUDA kernel launch of one profiled step
+(torch.profiler) with its device time, and the peak device memory; then
+one JSON line with all of it and the card.  No watchdog and no cache of
+earlier values: every number is this run's.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+REFERENCE_BATCHES = (1, 4, 16, 64)
+FUSED_BATCHES = (1, 4, 8, 16, 32)
+PHASE_BATCHES = (1, 64)
+PHASE_REPS = 3
+CTCT_BATCH = 64
+CTCT_ITERS = 3
+HORIZON = 4
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_kernels(fn) -> dict:
+    """CUDA kernel launches and their device time (ms) in one call of fn,
+    by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    launches, us = 0, 0.0
+    for evt in p.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            launches += evt.count
+            us += _device_us(evt)
+    return {"kernel_launches": launches, "device_ms": us / 1e3}
+
+
+def protocol_inputs(B: int, steps: int, device, seed: int = 0):
+    """Per-loop inputs of the serving protocol: xhat [B, steps, 3] and the
+    first uhat [B, 2], small deviations, with xr = ur = 0."""
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.uniform(-0.01, 0.01, (B, steps, 3))).to(device)
+    u0 = torch.from_numpy(rng.uniform(-0.01, 0.01, (B, 2))).to(device)
+    return xs, u0
+
+
+def run_rounds(reg, state, xs, u, rounds: int):
+    """`rounds` rounds of xs.shape[-2] steps, the decoded u of each step
+    fed back as the next uhat.  Returns (every u [rounds, B, steps, 2],
+    state)."""
+    zx = torch.zeros(3, dtype=torch.float64, device=xs.device)
+    zu = torch.zeros(2, dtype=torch.float64, device=xs.device)
+    out = []
+    for _ in range(rounds):
+        us = []
+        for i in range(xs.shape[-2]):
+            u, state = reg(state, xs[..., i, :], u, zx, zu)
+            us.append(u)
+        out.append(torch.stack(us, dim=-2))
+    return torch.stack(out), state
+
+
+def serve(reg, B: int, steps: int, rounds: int, device) -> dict:
+    """The serving protocol at batch B: one warm round, then `rounds`
+    timed rounds; launches per batched step, one profiled step, peak
+    device memory."""
+    from hectr_tpu_torch.ckks.scheme import TorchSampler
+    from hectr_tpu_torch.hempc import hempc_init_state
+    from hectr_tpu_torch.ops import ntt_cuda
+
+    xs, u0 = protocol_inputs(B, steps, device)
+    state = hempc_init_state(TorchSampler(7, device), device, (B,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _, state = run_rounds(reg, state, xs, u0, 1)
+    torch.cuda.synchronize()
+    ntt_cuda.reset_launches()
+    t0 = time.perf_counter()
+    us, state = run_rounds(reg, state, xs, u0, rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = rounds * steps
+    shapes = {f"{name} {list(shape)}": c / n
+              for (name, shape), c in sorted(ntt_cuda.LAUNCH_SHAPES.items())}
+    ntt_per_step = {k: v / n for k, v in ntt_cuda.LAUNCHES.items()}
+    prof = profile_kernels(lambda: run_rounds(reg, state, xs[..., :1, :], u0, 1))
+    agg = B * n / wall
+    return {"B": B, "steps": n, "aggregate_steps_s": agg,
+            "per_loop_steps_s": agg / B, "wall_s": wall,
+            "ntt_launches_per_step": ntt_per_step,
+            "ntt_launches_per_step_by_shape": shapes,
+            "kernel_launches_per_step": prof["kernel_launches"],
+            "device_ms_per_step": prof["device_ms"],
+            "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+            "canary_max": float(state[1].max())}
+
+
+def reference_setup(device):
+    """(ctx, keys, rot_keys, model, plant) at REFERENCE_HEMPC, every
+    rotation key, as the smoke's phase 3."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.config import REFERENCE_HEMPC
+
+    ctx, keys, rk = cli.hempc_keys(REFERENCE_HEMPC, 0, device)
+    return (ctx, keys, rk, *cli.cstr_setup())
+
+
+def flagship_setup(device):
+    """(ctx, keys, rot_keys, model, plant) at FLAGSHIP with the BSGS
+    rotation keys, as the smoke's phase 4."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.ckks.gemv import bsgs_rotations
+    from hectr_tpu_torch.config import FLAGSHIP
+
+    ctx, keys, rk = cli.hempc_keys(FLAGSHIP, 0, device,
+                                   bsgs_rotations(FLAGSHIP.slots))
+    return (ctx, keys, rk, *cli.cstr_setup())
+
+
+def reference_curve(setup, device):
+    from hectr_tpu_torch.hempc import make_hempc_regulator
+
+    ctx, keys, rk, model, plant = setup
+    reg = make_hempc_regulator(ctx, keys, rk, model, plant, HORIZON)
+    return [_logged(serve(reg, B, 16, 2, device), "reference-hempc")
+            for B in REFERENCE_BATCHES]
+
+
+def fused_curve(setup, device):
+    from hectr_tpu_torch.hempc.fused import (make_fused_materials,
+                                             make_fused_regulator)
+
+    ctx, keys, rk, model, plant = setup
+    mats = make_fused_materials(ctx, rk, model, plant, HORIZON, device)
+    reg = make_fused_regulator(ctx, keys, model, plant, HORIZON, mats)
+    return [_logged(serve(reg, B, 8, 3, device), "flagship-fused")
+            for B in FUSED_BATCHES]
+
+
+def _logged(rec: dict, label: str) -> dict:
+    print(f"[batch] {label} B={rec['B']}: {rec['aggregate_steps_s']:.2f} "
+        f"steps/s aggregate, {rec['per_loop_steps_s']:.2f} per loop; NTT "
+        f"launches per step {rec['ntt_launches_per_step']}; CUDA kernel "
+        f"launches per step {rec['kernel_launches_per_step']} "
+        f"({rec['device_ms_per_step']:.3f} device ms); peak device memory "
+        f"{rec['peak_device_bytes']} B", flush=True)
+    return rec
+
+
+def phases(setup, device) -> list[dict]:
+    """enc (4 encode + encrypt), reg (2 subs, 2 hoisted gemvs, add, neg,
+    mod-down, add) and dec (decrypt + decode) of one REFERENCE_HEMPC step
+    over B loops: device ms (torch.profiler, mean of PHASE_REPS calls)
+    and host ms per phase."""
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.ckks.gemv import gemv_apply, gemv_materials
+    from hectr_tpu_torch.ckks.scheme import TorchSampler
+    from hectr_tpu_torch.hempc.regulator import regulator_gains
+
+    ctx, keys, rk, model, plant = setup
+    k = ctx.max_limbs
+    K_A, K_B = regulator_gains(model, plant, HORIZON)
+    mat_A = gemv_materials(ctx, K_A, k, rk, device)
+    mat_B = gemv_materials(ctx, K_B, k, rk, device)
+    sampler = TorchSampler(3, device)
+    out = []
+    reps = PHASE_REPS
+    for B in PHASE_BATCHES:
+        v = torch.from_numpy(np.random.default_rng(B).uniform(
+            -0.01, 0.01, (4, B, ctx.slots))).to(device)
+
+        def enc():
+            return [S.encrypt(ctx, keys, S.encode(
+                ctx, (v[i], torch.zeros_like(v[i])), k), sampler)
+                for i in range(4)]
+
+        cts = enc()
+
+        def reg():
+            du = S.neg(ctx, S.add(
+                ctx, gemv_apply(ctx, mat_A, S.sub(ctx, cts[0], cts[2])),
+                gemv_apply(ctx, mat_B, S.sub(ctx, cts[1], cts[3]))))
+            return S.add(ctx, S.mod_down_to(ctx, cts[1], du.limbs), du)
+
+        ct_u = reg()
+
+        def dec():
+            return S.decode_ri(ctx, S.decrypt(ctx, keys, ct_u))
+
+        rec = {"B": B}
+        for name, fn in (("enc", enc), ("reg", reg), ("dec", dec)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) / reps * 1e3
+            prof = profile_kernels(lambda: [fn() for _ in range(reps)])
+            rec[name] = {"device_ms": prof["device_ms"] / reps,
+                         "host_ms": host,
+                         "kernel_launches": prof["kernel_launches"] / reps}
+        out.append(rec)
+    return out
+
+
+def ctct(device) -> dict:
+    """CTCT_BATCH ct x ct multiplies + rescale as one batched call at logN=14 (the
+    JAX package's bench14 preset), against one shared ciphertext; the
+    product of row 0 decoded to 1e-6."""
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.ckks.context import make_context
+    from hectr_tpu_torch.ckks.keyswitch import gen_relin_key, mul_ct
+    from hectr_tpu_torch.config import CKKSPreset
+
+    ctx = make_context(CKKSPreset(name="bench14", logn=14, slots=64,
+                                  scale_bits=50, limb_bits=25, mult_depth=5))
+    keys = S.keygen(ctx, S.TorchSampler(0, device), device)
+    relin = gen_relin_key(ctx, keys, S.TorchSampler(1, device))
+    rng = np.random.default_rng(0)
+    B, iters, k = CTCT_BATCH, CTCT_ITERS, ctx.max_limbs
+    v = torch.from_numpy(rng.uniform(-1, 1, (B, ctx.slots))).to(device)
+    w = torch.from_numpy(rng.uniform(-1, 1, ctx.slots)).to(device)
+    sampler = S.TorchSampler(3, device)
+    a = S.encrypt(ctx, keys, S.encode(ctx, (v, torch.zeros_like(v)), k),
+                  sampler)
+    b = S.encrypt(ctx, keys, S.encode(ctx, (w, torch.zeros_like(w)), k),
+                  sampler)
+
+    def mult():
+        return S.rescale_pair(ctx, mul_ct(ctx, a, b, relin))
+
+    torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(2):
+        out = mult()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = mult()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    re, _ = S.decode_ri(ctx, S.decrypt(ctx, keys, S.Ciphertext(
+        out.data[0], out.scale)))
+    err = float((re - v[0] * w).abs().max())
+    if not err < 1e-6:
+        raise AssertionError(f"ct x ct product off by {err}")
+    return {"B": B, "limbs": k, "mults_per_s": iters * B / wall,
+            "ms_per_batched_call": wall / iters * 1e3, "max_err_row0": err,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("CUDA is not available: the batch bench is of the device")
+    from hectr_tpu_torch.bench.ntt_kernels import card_line
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    card = card_line()
+    print(f"[batch] {torch.cuda.get_device_name(0)} | {card}", flush=True)
+    ref = reference_setup(device)
+    rec = collections.OrderedDict(device=torch.cuda.get_device_name(0),
+                                  card=card, torch=torch.__version__)
+    rec["reference_hempc"] = reference_curve(ref, device)
+    rec["phases"] = phases(ref, device)
+    print(f"[batch] phases {json.dumps(rec['phases'])}", flush=True)
+    del ref
+    rec["ctct_logn14"] = ctct(device)
+    print(f"[batch] ctct {json.dumps(rec['ctct_logn14'])}", flush=True)
+    torch.cuda.empty_cache()
+    rec["flagship_fused"] = fused_curve(flagship_setup(device), device)
+    print(json.dumps(rec))
+
+
+if __name__ == "__main__":
+    main()

@@ -28,8 +28,10 @@ from hectr_tpu_torch.bench import (cuda_graph_time_ms, cuda_time_ms,
 # (label, batch + (L,), preset in hectr_tpu_torch.config): the launches of
 # one FLAGSHIP step (keyswitch decomposition and mod-down, encode/encrypt,
 # decode), FLAGSHIP_QP's widest digit stacks (544 and 364 rows: more than
-# the 264 rows that fill the card at two CTAs an SM), and the
-# REFERENCE_HEMPC and MEDIUM digit stacks
+# the 264 rows that fill the card at two CTAs an SM), the REFERENCE_HEMPC
+# and MEDIUM digit stacks, and the batched steps' launches: the fused
+# FLAGSHIP regulator over 8 and 16 loops, the reference-shaped one over
+# 64 loops at REFERENCE_HEMPC (one launch carries every loop's rows)
 SHAPES = (
     ("flagship digit stack", (11, 24), "FLAGSHIP"),
     ("flagship mod-down", (2, 22), "FLAGSHIP"),
@@ -39,6 +41,13 @@ SHAPES = (
     ("flagship-qp digit stack at 26 limbs", (13, 28), "FLAGSHIP_QP"),
     ("reference digit stack", (4, 5), "REFERENCE_HEMPC"),
     ("medium digit stack", (6, 14), "MEDIUM"),
+    ("fused batch of 8: digit stack", (8, 11, 24), "FLAGSHIP"),
+    ("fused batch of 16: digit stack", (16, 11, 24), "FLAGSHIP"),
+    ("fused batch of 8: mod-down", (8, 2, 22), "FLAGSHIP"),
+    ("fused batch of 8: encode/encrypt/decode", (8, 22), "FLAGSHIP"),
+    ("reference batch of 64: digit stack", (64, 4, 5), "REFERENCE_HEMPC"),
+    ("reference batch of 64: encode/encrypt/decode", (64, 4),
+     "REFERENCE_HEMPC"),
 )
 
 

@@ -158,18 +158,19 @@ def _correction(y: torch.Tensor, q_f64: torch.Tensor) -> torch.Tensor:
 
 
 def grouped_convert(x: torch.Tensor, c: GroupedConvConstants) -> torch.Tensor:
-    """Grouped residues [dnum, alpha, N] (dummy rows zero) -> centered
-    per-group values' residues over the target chain [dnum, t, N]."""
-    y = mul_mod_shoup(x, c.inv, c.inv_shoup, c.q_col)    # [dnum, alpha, N]
-    v = _correction(y, c.q_f64)                          # [dnum, N]
-    acc = torch.zeros((c.dnum, c.t, x.shape[-1]), dtype=torch.int64,
+    """Grouped residues [..., dnum, alpha, N] (dummy rows zero) ->
+    centered per-group values' residues over the target chain
+    [..., dnum, t, N]; leading dims are independent rows."""
+    y = mul_mod_shoup(x, c.inv, c.inv_shoup, c.q_col)    # [..., dnum, alpha, N]
+    v = _correction(y, c.q_f64)                          # [..., dnum, N]
+    acc = torch.zeros((*x.shape[:-2], c.t, x.shape[-1]), dtype=torch.int64,
                       device=x.device)
     for i in range(c.alpha):
         # y_i is a residue of q_i, NOT reduced mod p_t: wide Shoup
-        term = mul_mod_shoup_wide(y[:, i, None, :], c.M[:, i], c.M_shoup[:, i],
-                                  c.p)                   # [dnum, t, N]
+        term = mul_mod_shoup_wide(y[..., i, None, :], c.M[:, i],
+                                  c.M_shoup[:, i], c.p)  # [..., dnum, t, N]
         acc = add_mod(acc, term, c.p)
-    corr = mul_mod(v[:, None, :], c.Qmod, c.p, c.mu, c.k)
+    corr = mul_mod(v[..., None, :], c.Qmod, c.p, c.mu, c.k)
     return sub_mod(acc, corr, c.p)
 
 

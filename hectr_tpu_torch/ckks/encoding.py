@@ -14,10 +14,11 @@ one interface, as in ``hectr_tpu/ckks/encoding.py``:
     makes the inverse transform land on real coefficients.
 
 Both branches take any leading batch dimensions ([..., s] -> [..., 2s]),
-and each row of a batch gets exactly the 1-D result: the FFT is
-elementwise per stage, in the JAX package's float64 operation order, and
-the matrix branch multiplies row by row.  Tables are cached per
-(size, device).
+and each row of a batch gets exactly the 1-D result on the CPU: the FFT
+is elementwise per stage, in the JAX package's float64 operation order;
+the matrix branch embeds a batch in one matrix product (which sums as
+the 1-D product does) and unembeds it through ``utils.rows.matvec``.
+Tables are cached per (size, device).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from hectr_tpu_torch.ckks.ntt import bit_reverse_indices
 from hectr_tpu_torch.config import resolve_device
+from hectr_tpu_torch.utils.rows import matvec
 
 MATRIX_MAX_SLOTS = 64
 
@@ -148,25 +150,15 @@ def cfft_inv(re: torch.Tensor, im: torch.Tensor, n2: int):
 # ---------------------------------------------------------------------------
 
 
-def _rows(fn, x: torch.Tensor, *more: torch.Tensor):
-    """Apply a 1-D function row by row over the leading dimensions."""
-    if x.dim() == 1:
-        return fn(x, *more)
-    lead = x.shape[:-1]
-    flat = [t.reshape(-1, t.shape[-1]) for t in (x, *more)]
-    out = [fn(*row) for row in zip(*flat)]
-    if isinstance(out[0], tuple):
-        return tuple(torch.stack(o).reshape(*lead, -1) for o in zip(*out))
-    return torch.stack(out).reshape(*lead, -1)
-
-
 def embed_ri(vre: torch.Tensor, vim: torch.Tensor, slots: int) -> torch.Tensor:
     """Slot values (re, im) float64 [..., s] -> real subring coefficients
     m' [..., 2s] (unscaled)."""
     device = resolve_device(vre.device)
     if slots <= MATRIX_MAX_SLOTS:
         ReE, ImE = _device_embedding(slots, device)
-        return _rows(lambda r, i: (ReE.T @ r + ImE.T @ i) / slots, vre, vim)
+        # one product each for a row or a batch: every row accumulates in
+        # the order of ``ReE.T @ row`` (bit-equal on the CPU)
+        return (vre @ ReE + vim @ ImE) / slots
     n2 = 2 * slots
     _, both = _device_slot_indices(slots, device)
     # slot i at pos[i] and its conjugate at cpos[i]: one scatter over
@@ -200,7 +192,7 @@ def unembed(m: torch.Tensor, slots: int) -> tuple[torch.Tensor, torch.Tensor]:
     device = resolve_device(m.device)
     if slots <= MATRIX_MAX_SLOTS:
         ReE, ImE = _device_embedding(slots, device)
-        return _rows(lambda x: (ReE @ x, ImE @ x), m)
+        return matvec(ReE, m), matvec(ImE, m)
     pos, _ = _device_slot_indices(slots, device)
     fre, fim = cfft_fwd(m, torch.zeros_like(m), 2 * slots)
     return fre.index_select(-1, pos), fim.index_select(-1, pos)

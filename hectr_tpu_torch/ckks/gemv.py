@@ -13,7 +13,8 @@ vector (GPQHE's he_gemv), as ``hectr_tpu/ckks/gemv.py``.
 Materials (diagonal plaintexts encoded at level k, permutations,
 level-sliced keys) are built once per matrix; the loops over rotation
 amounts are plain Python loops.  One rescale at the end; output scale
-== input scale.
+== input scale.  A batch of ciphertexts [..., 2, k, N] goes through
+every step at once, the materials shared by all rows.
 """
 
 from __future__ import annotations
@@ -190,18 +191,19 @@ def _apply_diag(ctx: CKKSContext, d: dict, ct: Ciphertext) -> Ciphertext:
     else:
         acc = torch.zeros_like(ct.data)
     if d["rot"]:
-        digits = decompose_digits(ctx, ct.data[1])          # hoisted
-        c0 = ct.data[0]
+        digits = decompose_digits(ctx, ct.data[..., 1, :, :])   # hoisted
+        c0 = ct.data[..., 0, :, :]
         for rot in d["rot"]:
             perm = rot["perm"]
             ks_ext = _inner_product(ctx, digits.index_select(-1, perm),
                                     rot["ksk"], k, sliced=True)
-            ks = _mod_down_special(ctx, ks_ext, k)          # [2, k, N]
+            ks = _mod_down_special(ctx, ks_ext, k)          # [..., 2, k, N]
             c0r = c0.index_select(-1, perm)
-            term0 = mul_mod_shoup(add_mod(c0r, ks[0], t.p), rot["pt"],
-                                  rot["pt_sh"], t.p)
-            term1 = mul_mod_shoup(ks[1], rot["pt"], rot["pt_sh"], t.p)
-            acc = add_mod(acc, torch.stack([term0, term1]), t.p)
+            term0 = mul_mod_shoup(add_mod(c0r, ks[..., 0, :, :], t.p),
+                                  rot["pt"], rot["pt_sh"], t.p)
+            term1 = mul_mod_shoup(ks[..., 1, :, :], rot["pt"], rot["pt_sh"],
+                                  t.p)
+            acc = add_mod(acc, torch.stack([term0, term1], dim=-3), t.p)
     return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))
 
 
@@ -247,31 +249,34 @@ def _apply_bsgs(ctx: CKKSContext, b: dict, ct: Ciphertext) -> Ciphertext:
     k = ct.limbs
     pair = ctx.pair_scale(k)
     t = ctx.tables(k, ct.data.device)
-    digits = decompose_digits(ctx, ct.data[1])              # hoisted babies
-    c0 = ct.data[0]
+    digits = decompose_digits(ctx, ct.data[..., 1, :, :])  # hoisted babies
+    c0 = ct.data[..., 0, :, :]
     C = [ct.data]
     for baby in b["baby"]:
         perm = baby["perm"]
         ks_ext = _inner_product(ctx, digits.index_select(-1, perm),
                                 baby["ksk"], k, sliced=True)
         ks = _mod_down_special(ctx, ks_ext, k)
-        C.append(torch.stack([add_mod(c0.index_select(-1, perm), ks[0], t.p),
-                              ks[1]]))
-    C = torch.stack(C)                                      # [n1, 2, k, N]
+        C.append(torch.stack([add_mod(c0.index_select(-1, perm),
+                                      ks[..., 0, :, :], t.p),
+                              ks[..., 1, :, :]], dim=-3))
+    C = torch.stack(C, dim=-4)                              # [..., n1, 2, k, N]
 
     def group_sum(ptg):
-        # sum_b C[b] * ptg[b]: reduced products, one sum + Barrett
-        prod = mul_mod(C, ptg[:, None], t.p, t.mu, t.k)     # [n1, 2, k, N]
-        return sum_mod(prod, 0, t.p, t.mu, t.k)             # [2, k, N]
+        # sum_b C[b] * ptg[b]: reduced products, one sum + Barrett over
+        # the baby axis
+        prod = mul_mod(C, ptg[:, None], t.p, t.mu, t.k)     # [..., n1, 2, k, N]
+        return sum_mod(prod, -4, t.p, t.mu, t.k)            # [..., 2, k, N]
 
     acc = group_sum(b["pt0"]) if "pt0" in b else torch.zeros_like(ct.data)
     for giant in b["giant"]:
         w = group_sum(giant["pt"])
         perm = giant["perm"]
-        w0 = w[0].index_select(-1, perm)
-        w1 = w[1].index_select(-1, perm)
+        w0 = w[..., 0, :, :].index_select(-1, perm)
+        w1 = w[..., 1, :, :].index_select(-1, perm)
         dig = decompose_digits(ctx, w1)
         ks_ext = _inner_product(ctx, dig, giant["ksk"], k, sliced=True)
         ks = _mod_down_special(ctx, ks_ext, k)
-        acc = add_mod(acc, torch.stack([add_mod(w0, ks[0], t.p), ks[1]]), t.p)
+        acc = add_mod(acc, torch.stack([add_mod(w0, ks[..., 0, :, :], t.p),
+                                        ks[..., 1, :, :]], dim=-3), t.p)
     return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))

@@ -209,39 +209,40 @@ def slice_key(ctx: CKKSContext, ksk: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def decompose_digits(ctx: CKKSContext, c1: torch.Tensor) -> torch.Tensor:
-    """NTT-domain poly [k, N] -> extended NTT-domain digits
-    [dnum(k), k+S, N]: per-group centered residues base-extended to the
-    chain + special modulus.  The hoistable part of rotation."""
+    """NTT-domain poly [..., k, N] -> extended NTT-domain digits
+    [..., dnum(k), k+S, N]: per-group centered residues base-extended to
+    the chain + special modulus.  The hoistable part of rotation."""
     k = c1.shape[-2]
     device = c1.device
-    coeff = intt(c1, ctx.tables(k, device))               # [k, N]
+    coeff = intt(c1, ctx.tables(k, device))               # [..., k, N]
     dnum, alpha = ctx.dnum(k), ctx.alpha
     pad = dnum * alpha - k
     if pad:
-        coeff = torch.cat([coeff, torch.zeros((pad, ctx.n), dtype=torch.int64,
-                                              device=device)])
-    grouped = coeff.reshape(dnum, alpha, ctx.n)
+        coeff = torch.cat([coeff, torch.zeros((*coeff.shape[:-2], pad, ctx.n),
+                                              dtype=torch.int64,
+                                              device=device)], dim=-2)
+    grouped = coeff.unflatten(-2, (dnum, alpha))          # [..., dnum, alpha, N]
     consts = grouped_conv_constants(
         ctx.digit_groups(k), ctx.data_primes[:k] + ctx.special_primes, device)
-    ext = grouped_convert(grouped, consts)                # [dnum, k+S, N]
+    ext = grouped_convert(grouped, consts)                # [..., dnum, k+S, N]
     return ntt(ext, ctx.tables_ks(k, device))
 
 
 def _inner_product(ctx: CKKSContext, digits: torch.Tensor, ksk: torch.Tensor,
                    k: int, sliced: bool = False) -> torch.Tensor:
     """sum_j digits[j] * ksk[j] over the extended modulus.  digits
-    [dnum, k+S, N]; key [dnum, 4, k+S, N] once sliced to this level
+    [..., dnum, k+S, N]; key [dnum, 4, k+S, N] once sliced to this level
     (Shoup products with the stored companions) or [dnum, 2, k+S, N] in
-    the compact layout (Barrett products); then one sum + Barrett pass
-    over the digit axis -> [2, k+S, N]."""
+    the compact layout (Barrett products), shared by every leading row;
+    then one sum + Barrett pass over the digit axis -> [..., 2, k+S, N]."""
     tks = ctx.tables_ks(k, digits.device)
     ksk_l = ksk if sliced else slice_key(ctx, ksk, k)
+    d = digits.unsqueeze(-3)                              # [..., dnum, 1, k+S, N]
     if ksk_l.shape[1] == 4:
-        prod = mul_mod_shoup(digits[:, None], ksk_l[:, :2], ksk_l[:, 2:],
-                             tks.p)
+        prod = mul_mod_shoup(d, ksk_l[:, :2], ksk_l[:, 2:], tks.p)
     else:
-        prod = mul_mod(digits[:, None], ksk_l, tks.p, tks.mu, tks.k)
-    return sum_mod(prod, 0, tks.p, tks.mu, tks.k)
+        prod = mul_mod(d, ksk_l, tks.p, tks.mu, tks.k)
+    return sum_mod(prod, -4, tks.p, tks.mu, tks.k)
 
 
 def _mod_down_special(ctx: CKKSContext, acc: torch.Tensor, k: int) -> torch.Tensor:
@@ -261,8 +262,8 @@ def _mod_down_special(ctx: CKKSContext, acc: torch.Tensor, k: int) -> torch.Tens
 
 def key_switch(ctx: CKKSContext, poly: torch.Tensor,
                ksk: torch.Tensor) -> torch.Tensor:
-    """Switch an NTT-domain poly [k, N] (a ct component under s') to a
-    2-component ct under s: returns [2, k, N]."""
+    """Switch an NTT-domain poly [..., k, N] (a ct component under s')
+    to a 2-component ct under s: returns [..., 2, k, N]."""
     k = poly.shape[-2]
     digits = decompose_digits(ctx, poly)
     acc = _inner_product(ctx, digits, ksk, k)
@@ -271,35 +272,37 @@ def key_switch(ctx: CKKSContext, poly: torch.Tensor,
 
 def rotate(ctx: CKKSContext, ct: Ciphertext, r: int,
            rot_keys: dict[int, torch.Tensor]) -> Ciphertext:
-    """Left-rotate ciphertext slots by r."""
+    """Left-rotate ciphertext slots by r ([..., 2, k, N])."""
     r = r % ctx.slots
     if r == 0:
         return ct
     device = ct.data.device
     perm = permutation(ctx.n, galois_element(r, ctx.n), device)
-    c0r = apply_automorphism(ct.data[0], perm)
-    c1r = apply_automorphism(ct.data[1], perm)
+    c0r = apply_automorphism(ct.data[..., 0, :, :], perm)
+    c1r = apply_automorphism(ct.data[..., 1, :, :], perm)
     ks = key_switch(ctx, c1r, rot_keys[r])
     t = ctx.tables(ct.limbs, device)
-    return Ciphertext(data=torch.stack([add_mod(c0r, ks[0], t.p), ks[1]]),
+    return Ciphertext(data=torch.stack([add_mod(c0r, ks[..., 0, :, :], t.p),
+                                        ks[..., 1, :, :]], dim=-3),
                       scale=ct.scale)
 
 
 def mul_ct(ctx: CKKSContext, a: Ciphertext, b: Ciphertext,
            relin_key: torch.Tensor) -> Ciphertext:
     """ct x ct multiply + relinearise; scales multiply (rescale
-    separately).  Products are Barrett on int64 residues (< 2^60 since
-    p < 2^30)."""
+    separately).  Operands [..., 2, k, N] (leading dims broadcast).
+    Products are Barrett on int64 residues (< 2^60 since p < 2^30)."""
     if a.limbs != b.limbs:
         raise ValueError(f"operands at {a.limbs} vs {b.limbs} limbs")
     t = ctx.tables(a.limbs, a.data.device)
-    a0, a1 = a.data[0], a.data[1]
-    b0, b1 = b.data[0], b.data[1]
+    a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
+    b0, b1 = b.data[..., 0, :, :], b.data[..., 1, :, :]
     d0 = mul_mod(a0, b0, t.p, t.mu, t.k)
     d1 = add_mod(mul_mod(a0, b1, t.p, t.mu, t.k),
                  mul_mod(a1, b0, t.p, t.mu, t.k), t.p)
     d2 = mul_mod(a1, b1, t.p, t.mu, t.k)
     ks = key_switch(ctx, d2, relin_key)
-    return Ciphertext(data=torch.stack([add_mod(d0, ks[0], t.p),
-                                        add_mod(d1, ks[1], t.p)]),
+    return Ciphertext(data=torch.stack([add_mod(d0, ks[..., 0, :, :], t.p),
+                                        add_mod(d1, ks[..., 1, :, :], t.p)],
+                                       dim=-3),
                       scale=a.scale * b.scale)

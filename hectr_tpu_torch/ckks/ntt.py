@@ -7,11 +7,13 @@ Cooley-Tukey with the 2N-th root psi's powers in bit-reversed order
 psi^-1 powers, scaled by N^-1 (bit-reversed -> natural).  Pointwise
 products happen in the bit-reversed NTT domain.
 
-Dispatch is by the tensor's device and nothing else: a CUDA tensor goes
-to the hand-written kernels (``hectr_tpu_torch.ops.ntt_cuda``), which
-raise on what they do not support; a CPU tensor goes to the plain
-stage-per-pass version below, which is also the reference the kernels
-are held to.
+Dispatch is by the tensor's device: a CUDA tensor goes to the
+hand-written kernels (``hectr_tpu_torch.ops.ntt_cuda``), which raise on
+what they do not support; a CPU tensor goes to the plain stage-per-pass
+version below, which is also the reference the kernels are held to.  On
+the card, a ring above the kernels' largest row (2^15) is routed by its
+size to the coefficient-sharded transform on a local mesh
+(``sharded_ring``), whose local stages are kernel launches again.
 """
 
 from __future__ import annotations
@@ -219,13 +221,32 @@ def _check(a: torch.Tensor, t: NTTTables) -> None:
         raise ValueError(f"tensor on {a.device}, tables on {t.device}")
 
 
+def sharded_ring(a: torch.Tensor, t: NTTTables, inverse: bool = False
+                 ) -> torch.Tensor:
+    """The transform of a ring larger than one kernel row: the
+    coefficient-sharded NTT (``parallel.ntt_shard``) on a local mesh of
+    N / 2^15 shards, gathered back to ``[..., L, N]``.  Its local stages
+    go through `ntt` / `intt` on chunks of 2^15, so on the card they are
+    K1/K2 launches; on the CPU they are the plain stages (bit-equal to
+    ``ntt_plain`` / ``intt_plain`` either way)."""
+    from hectr_tpu_torch.ops.ntt_cuda import MAX_LOGN
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import make_sharded_ntt
+
+    mesh = LocalMesh(t.n >> MAX_LOGN)
+    fwd, inv = make_sharded_ntt(t, mesh)
+    return mesh.gather((inv if inverse else fwd)(a))
+
+
 def ntt(a: torch.Tensor, t: NTTTables) -> torch.Tensor:
-    """Forward negacyclic NTT: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    """Forward negacyclic NTT: the CUDA kernel for a CUDA tensor (through
+    ``sharded_ring`` above 2^15), the plain version for a CPU tensor."""
     _check(a, t)
     if a.device.type == "cuda":
-        from hectr_tpu_torch.ops.ntt_cuda import ntt_cuda
+        from hectr_tpu_torch.ops.ntt_cuda import MAX_LOGN, ntt_cuda
 
+        if t.n > 1 << MAX_LOGN:
+            return sharded_ring(a, t)
         return ntt_cuda(a.contiguous(), t)
     if a.device.type != "cpu":
         raise NotImplementedError(f"no NTT for device {a.device}")
@@ -236,8 +257,10 @@ def intt(a: torch.Tensor, t: NTTTables) -> torch.Tensor:
     """Inverse negacyclic NTT, dispatched as `ntt` is."""
     _check(a, t)
     if a.device.type == "cuda":
-        from hectr_tpu_torch.ops.ntt_cuda import intt_cuda
+        from hectr_tpu_torch.ops.ntt_cuda import MAX_LOGN, intt_cuda
 
+        if t.n > 1 << MAX_LOGN:
+            return sharded_ring(a, t, inverse=True)
         return intt_cuda(a.contiguous(), t)
     if a.device.type != "cpu":
         raise NotImplementedError(f"no NTT for device {a.device}")

@@ -2,8 +2,12 @@
 
 The ``hectr_tpu/ckks/scheme.py`` API on int64 residue tensors:
 ciphertexts and plaintexts live in the NTT (evaluation) domain as
-[(2,) K, N] tensors, scales are exact Fractions.  Every op runs on the
-device of its input tensors.
+[..., (2,) K, N] tensors, scales are exact Fractions.  Leading dims are
+a batch of independent ciphertexts (the JAX package's vmapped
+[B, 2, L, N]): every op takes them, a [K, N] operand (a key, a shared
+plaintext) broadcasts over them, and each row gets exactly what the
+unbatched op gives it.  Every op runs on the device of its input
+tensors.
 
 Randomness comes from a sampler object (``Sampler``): keygen draws a
 ternary s, a uniform a and a gaussian e; each encryption draws v, e0
@@ -78,16 +82,19 @@ class KeySet:
 
 class Sampler(Protocol):
     """Where keygen, encrypt and switching-key generation draw their
-    randomness.  Small coefficients are signed int64 [N] (or [dnum, N]);
-    uniform residues are int64 [..., K, N] below each row's prime."""
+    randomness.  Small coefficients are signed int64 [N] (or [dnum, N],
+    [*batch, N]); uniform residues are int64 [..., K, N] below each
+    row's prime."""
 
     def keygen(self, ctx: CKKSContext, device
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(s ternary [N], a uniform [K_max, N] NTT domain, e gauss [N])."""
 
-    def encryption(self, ctx: CKKSContext, k: int, device
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(v ternary [N], e0 gauss [N], e1 gauss [N])."""
+    def encryption(self, ctx: CKKSContext, k: int, batch: tuple[int, ...],
+                   device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(v ternary, e0 gauss, e1 gauss), each [*batch, N]: one
+        encryption's draws per row of a batch of `batch` ciphertexts
+        (batch () for one)."""
 
     def switching_key(self, ctx: CKKSContext, dnum: int,
                       primes: tuple[int, ...], device
@@ -103,9 +110,9 @@ class TorchSampler:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
-    def ternary(self, n: int) -> torch.Tensor:
+    def ternary(self, *shape: int) -> torch.Tensor:
         """{-1, 0, +1} with probabilities {1/4, 1/2, 1/4}."""
-        r = torch.randint(0, 4, (n,), generator=self.gen, device=self.device)
+        r = torch.randint(0, 4, shape, generator=self.gen, device=self.device)
         return (r == 3).to(torch.int64) - (r == 0).to(torch.int64)
 
     def gauss(self, *shape: int) -> torch.Tensor:
@@ -125,8 +132,11 @@ class TorchSampler:
         e = self.gauss(ctx.n)
         return s, a, e
 
-    def encryption(self, ctx, k, device):
-        return self.ternary(ctx.n), self.gauss(ctx.n), self.gauss(ctx.n)
+    def encryption(self, ctx, k, batch, device):
+        # one draw of each kind for the whole batch: as many launches at
+        # every batch size
+        return (self.ternary(*batch, ctx.n), self.gauss(*batch, ctx.n),
+                self.gauss(*batch, ctx.n))
 
     def switching_key(self, ctx, dnum, primes, device):
         return self.uniform(primes, dnum, n=ctx.n), self.gauss(dnum, ctx.n)
@@ -157,26 +167,30 @@ def keygen(ctx: CKKSContext, sampler: Sampler, device) -> KeySet:
 
 def encrypt(ctx: CKKSContext, keys: KeySet, pt: Plaintext,
             sampler: Sampler) -> Ciphertext:
-    """Public-key encryption: (v pk0 + e0 + m, v pk1 + e1)."""
+    """Public-key encryption: (v pk0 + e0 + m, v pk1 + e1).  A plaintext
+    [..., k, N] gives a ciphertext [..., 2, k, N], each row from its own
+    draws of `sampler`."""
     k = pt.limbs
     device = pt.data.device
     t = ctx.tables(k, device)
     v, e0, e1 = (ntt(signed_to_residues(x.to(device), t.p), t)
-                 for x in sampler.encryption(ctx, k, device))
+                 for x in sampler.encryption(ctx, k, tuple(pt.data.shape[:-2]),
+                                             device))
     pk0 = keys.pk[0, :k]
     pk1 = keys.pk[1, :k]
     c0 = add_mod(add_mod(mul_mod(v, pk0, t.p, t.mu, t.k), e0, t.p),
                  pt.data, t.p)
     c1 = add_mod(mul_mod(v, pk1, t.p, t.mu, t.k), e1, t.p)
-    return Ciphertext(data=torch.stack([c0, c1]), scale=pt.scale)
+    return Ciphertext(data=torch.stack([c0, c1], dim=-3), scale=pt.scale)
 
 
 def decrypt(ctx: CKKSContext, keys: KeySet, ct: Ciphertext) -> Plaintext:
     """m = c0 + c1 * s; returns the NTT-domain plaintext."""
     k = ct.limbs
     t = ctx.tables(k, ct.data.device)
-    m = add_mod(ct.data[0],
-                mul_mod(ct.data[1], keys.sk[:k], t.p, t.mu, t.k), t.p)
+    m = add_mod(ct.data[..., 0, :, :],
+                mul_mod(ct.data[..., 1, :, :], keys.sk[:k], t.p, t.mu, t.k),
+                t.p)
     return Plaintext(data=m, scale=ct.scale)
 
 
@@ -276,8 +290,9 @@ def add_pt(ctx: CKKSContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
     if a.limbs != pt.limbs or a.scale != pt.scale:
         raise ValueError("plaintext level or scale differs from ciphertext")
     t = ctx.tables(a.limbs, a.data.device)
+    c0 = add_mod(a.data[..., 0, :, :], pt.data, t.p)
     return Ciphertext(
-        data=torch.stack([add_mod(a.data[0], pt.data, t.p), a.data[1]]),
+        data=torch.stack([c0, a.data[..., 1, :, :].expand_as(c0)], dim=-3),
         scale=a.scale)
 
 
@@ -286,7 +301,8 @@ def mul_pt(ctx: CKKSContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
     if a.limbs != pt.limbs:
         raise ValueError(f"{a.limbs} vs {pt.limbs} limbs")
     t = ctx.tables(a.limbs, a.data.device)
-    return Ciphertext(data=mul_mod(a.data, pt.data[None], t.p, t.mu, t.k),
+    return Ciphertext(data=mul_mod(a.data, pt.data.unsqueeze(-3), t.p, t.mu,
+                                   t.k),
                       scale=a.scale * pt.scale)
 
 

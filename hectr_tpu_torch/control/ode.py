@@ -22,7 +22,9 @@ def rk4_step(f, x, u, p, dt):
 
 
 def stiff_step(f, jac, x, u, p, dt):
-    """One linearly-implicit stiff step: x + dt * (I - dt*J)^-1 f(x)."""
+    """One linearly-implicit stiff step: x + dt * (I - dt*J)^-1 f(x).
+    x [..., n] with J [..., n, n]: one batched solve for a batch of
+    states, each row bit-equal to its own solve on the CPU."""
     n = x.shape[-1]
     A = torch.eye(n, dtype=x.dtype, device=x.device) - dt * jac(x, u, p)
     return x + dt * torch.linalg.solve(A, f(x, u, p))

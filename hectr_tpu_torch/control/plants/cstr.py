@@ -4,7 +4,8 @@ Capability of reference src/cstr.c, as
 ``hectr_tpu/control/plants/cstr.py``: 3 states (concentration c,
 temperature T, level h), 2 controls (coolant temperature Tc, outlet
 flow F), 1 parameter (inlet flow F0).  The ODE and Jacobian run per
-step on float64 tensors; linearisation is setup-time NumPy.
+step on float64 tensors, a state [3] or a batch of states [..., 3];
+linearisation is setup-time NumPy.
 """
 
 from __future__ import annotations
@@ -38,9 +39,9 @@ CSTR_STEADY_STATE = dict(
 
 def cstr_ode(x, u, p):
     """xdot for the CSTR (reference cstr_ode, src/cstr.c:50-65)."""
-    c, T, h = x[0], x[1], x[2]
-    Tc, F = u[0], u[1]
-    F0 = p[0]
+    c, T, h = x[..., 0], x[..., 1], x[..., 2]
+    Tc, F = u[..., 0], u[..., 1]
+    F0 = p[..., 0]
     kT = K0 * torch.exp(-E_OVER_R / T)
     S = math.pi * RADIUS**2
     return torch.stack([
@@ -49,15 +50,15 @@ def cstr_ode(x, u, p):
         + (-DELTA_H) / (RHO * CP) * kT * c
         + 2 * U_HT / (RADIUS * RHO * CP) * (Tc - T),
         (F0 - F) / S,
-    ])
+    ], dim=-1)
 
 
 def cstr_jacobian(x, u, p):
     """Analytic d(xdot)/dx (reference cstr_jacobian, src/cstr.c:67-87).
     Third row is zero: level dynamics do not depend on the state."""
     del u
-    c, T, h = x[0], x[1], x[2]
-    F0 = p[0]
+    c, T, h = x[..., 0], x[..., 1], x[..., 2]
+    F0 = p[..., 0]
     kT = K0 * torch.exp(-E_OVER_R / T)
     S = math.pi * RADIUS**2
     heat = (-DELTA_H) / (RHO * CP)
@@ -66,15 +67,15 @@ def cstr_jacobian(x, u, p):
             -F0 / (S * h) - kT,
             -kT * E_OVER_R / (T * T) * c,
             -F0 * (C0 - c) / (S * h * h),
-        ]),
+        ], dim=-1),
         torch.stack([
             heat * kT,
             -F0 / (S * h) + heat * kT * E_OVER_R / (T * T) * c
             - 2 * U_HT / (RADIUS * RHO * CP),
             -F0 * (T0 - T) / (S * h * h),
-        ]),
-        torch.zeros(3, dtype=x.dtype, device=x.device),
-    ])
+        ], dim=-1),
+        torch.zeros_like(x),
+    ], dim=-2)
 
 
 def cstr_linearize(xs, us, ps, dt):

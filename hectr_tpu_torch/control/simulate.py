@@ -7,7 +7,11 @@ and `hectr_simulate` (src/ctr.c:500-618), as
 step loop with the state kept on the device.  The regulator is a
 pluggable function: the encrypted regulator (hectr_tpu_torch.hempc)
 runs in this same loop, which is what makes the plaintext-vs-encrypted
-comparison a like-for-like one.
+comparison a like-for-like one.  ``simulate_batch`` runs B independent
+loops, each with its own disturbance, through the same step with every
+state batched [B, n] and one regulator call per step for all of them
+(the JAX package vmaps a whole loop step instead,
+``__graft_entry__.py`` ``one_loop_step``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from hectr_tpu_torch.control.stages import (
     selector_matrix,
     weighting_matrices,
 )
+from hectr_tpu_torch.utils.rows import matvec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +74,8 @@ Regulator = Callable[[Any, torch.Tensor, torch.Tensor, torch.Tensor,
 def make_mpc_regulator(model: LinearModel, plant: Plant, horizon: int,
                        device) -> Regulator:
     """The plaintext unconstrained-MPC regulator with precomputed gains:
-    u = uhat + du[0:nu], du = -(K_A (xhat-xr) + K_B (uhat-ur))."""
+    u = uhat + du[0:nu], du = -(K_A (xhat-xr) + K_B (uhat-ur)), on one
+    loop's vectors or a batch of them."""
     ny, nx = np.shape(model.C)
     nu = np.shape(model.B)[1]
     Q, R = weighting_matrices(plant.xs, plant.us)
@@ -79,7 +85,7 @@ def make_mpc_regulator(model: LinearModel, plant: Plant, horizon: int,
     K_B = torch.as_tensor(K_B[:nu], dtype=torch.float64, device=device)
 
     def regulator(state, xhat, uhat, xr, ur):
-        du = -(K_A @ (xhat - xr) + K_B @ (uhat - ur))
+        du = -(matvec(K_A, xhat - xr) + matvec(K_B, uhat - ur))
         return uhat + du, state
 
     return regulator
@@ -123,6 +129,43 @@ def simulate(
     Kalman time update.  horizon defaults to N // 10; x0 = xhatm0 =
     dhatm0 = 0 in deviation variables.
     """
+    p_seq = np.asarray(p_seq, dtype=np.float64).reshape(N, -1)
+    x, u, state = _closed_loop(model, plant, p_seq, dt, N, device, regulator,
+                               regulator_state, horizon, rsp)
+    if return_state:
+        return x, u, state
+    return x, u
+
+
+def simulate_batch(
+    model: LinearModel,
+    plant: Plant,
+    p_seqs: np.ndarray,
+    dt: float,
+    N: int,
+    device,
+    regulator: Regulator | None = None,
+    regulator_state: Any = None,
+    horizon: int | None = None,
+):
+    """B independent closed loops, loop b driven by its own disturbance
+    p_seqs[b] ([B, N, np]), stepped together: every state is [B, n] and
+    the regulator is called once per step with the whole batch (so an
+    encrypted regulator encrypts, switches keys and decrypts B loops per
+    call).  Returns positional numpy (x [B, N+1, nx], u [B, N, nu]) and
+    the final regulator state.  Each loop is `simulate`'s loop on its own
+    disturbance; on the CPU the plant, estimator and selector rows are
+    bit-equal to it."""
+    p_seqs = np.asarray(p_seqs, dtype=np.float64)
+    B = p_seqs.shape[0]
+    return _closed_loop(model, plant, p_seqs.reshape(B, N, -1), dt, N, device,
+                        regulator, regulator_state, horizon, None)
+
+
+def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
+                 regulator_state, horizon, rsp):
+    """The step loop of `simulate` over states [*lead, n], with p_seq
+    [*lead, N, np]."""
     device = resolve_device(device)
     horizon = N // 10 if horizon is None else horizon
     if regulator is None:
@@ -130,6 +173,7 @@ def simulate(
 
     nx = np.shape(model.C)[1]
     nu = np.shape(model.B)[1]
+    lead = p_seq.shape[:-2]
     Lx, Ld = estimator_gains(model.A, model.B, model.C, model.Bd, model.Cd,
                              plant.xs)
     Ginv = selector_matrix(model.A, model.B, model.C, model.Hr)
@@ -141,14 +185,15 @@ def simulate(
                                             model.Bd, model.Cd, model.Hr))
     Lx, Ld, Ginv = f64(Lx), f64(Ld), f64(Ginv)
     xs, us, ps = f64(plant.xs), f64(plant.us), f64(plant.ps)
-    rsp_v = torch.zeros(nu, dtype=torch.float64, device=device) \
+    rsp_v = torch.zeros((*lead, nu), dtype=torch.float64, device=device) \
         if rsp is None else f64(rsp)
-    p_seq = f64(p_seq).reshape(N, -1)
+    p_seq = f64(p_seq)
 
-    x = torch.zeros(nx, dtype=torch.float64, device=device)
-    xhatm = torch.zeros(nx, dtype=torch.float64, device=device)
-    dhatm = torch.zeros(model.Bd.shape[1], dtype=torch.float64, device=device)
-    u = torch.zeros(nu, dtype=torch.float64, device=device)
+    x = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
+    xhatm = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
+    dhatm = torch.zeros((*lead, model.Bd.shape[1]), dtype=torch.float64,
+                        device=device)
+    u = torch.zeros((*lead, nu), dtype=torch.float64, device=device)
     reg_state = regulator_state
     x_traj, u_traj = [], []
     for k in range(N):
@@ -159,12 +204,11 @@ def simulate(
         u, reg_state = regulator(reg_state, xhat, uhat, xr, ur)
         x_traj.append(x)
         u_traj.append(u)
-        x = actuate(plant.ode, plant.jacobian, x, u, p_seq[k], xs, us, ps, dt)
+        x = actuate(plant.ode, plant.jacobian, x, u, p_seq[..., k, :], xs, us,
+                    ps, dt)
         xhatm, dhatm = estimate_forward(A, B, Bd, xhat, dhat, u)
     x_traj.append(x)
 
-    x_all = (torch.stack(x_traj) + xs).cpu().numpy()
-    u_all = (torch.stack(u_traj) + us).cpu().numpy()
-    if return_state:
-        return x_all, u_all, reg_state
-    return x_all, u_all
+    x_all = (torch.stack(x_traj, dim=-2) + xs).cpu().numpy()
+    u_all = (torch.stack(u_traj, dim=-2) + us).cpu().numpy()
+    return x_all, u_all, reg_state

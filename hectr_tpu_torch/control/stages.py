@@ -12,6 +12,11 @@ Capabilities of reference src/ctr.c:
   estimate_forward   -> `ctr_estimate` (src/ctr.c:294-332)
   actuate            -> `ctr_actuate` (src/ctr.c:334-354)
 
+The per-step updates take one state vector [n] or a batch of them
+[..., n] (independent loops): matrices apply to the last axis through
+``utils.rows.matvec``, so each row of a batch equals its unbatched
+update bit for bit on the CPU.
+
 Deviation (documented): reference `ctr_measure` indexes x[i] instead of
 x[j] (src/ctr.c:163), i.e. y_i = (sum_j C_ij) * x_i -- benign in all its
 tests because C is identity.  `measure` here computes the correct
@@ -27,6 +32,7 @@ import torch
 from hectr_tpu_torch.config import SMALL
 from hectr_tpu_torch.control.ode import stiff_step
 from hectr_tpu_torch.control.riccati import dlqe
+from hectr_tpu_torch.utils.rows import matvec
 
 # ---------------------------------------------------------------------------
 # Setup-time builders (host NumPy float64)
@@ -102,7 +108,7 @@ def selector_matrix(A, B, C, Hr):
 def measure(C, x):
     """y = C x (reference ctr_measure, src/ctr.c:156-164; index bug
     fixed -- see module docstring)."""
-    return C @ x
+    return matvec(C, x)
 
 
 def measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm):
@@ -113,10 +119,10 @@ def measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm):
     Cd/Ld/dhatm=None for the disturbance-free branch.
     """
     if Cd is None:
-        e = y - C @ xhatm
-        return xhatm + Lx @ e, None
-    e = y - C @ xhatm - Cd @ dhatm
-    return xhatm + Lx @ e, dhatm + Ld @ e
+        e = y - matvec(C, xhatm)
+        return xhatm + matvec(Lx, e), None
+    e = y - matvec(C, xhatm) - matvec(Cd, dhatm)
+    return xhatm + matvec(Lx, e), dhatm + matvec(Ld, e)
 
 
 def select_target(Bd, Cd, Hr, Ginv, dhat, rsp):
@@ -124,19 +130,21 @@ def select_target(Bd, Cd, Hr, Ginv, dhat, rsp):
 
     Parity: reference ctr_select (src/ctr.c:231-280).
     """
-    nx = Bd.shape[0] if Bd is not None else Ginv.shape[0] - rsp.shape[0]
+    nx = Bd.shape[0] if Bd is not None else Ginv.shape[0] - rsp.shape[-1]
     if Bd is None:
-        pack = torch.cat([torch.zeros(nx, dtype=rsp.dtype, device=rsp.device), rsp])
+        pack = torch.cat([torch.zeros((*rsp.shape[:-1], nx), dtype=rsp.dtype,
+                                      device=rsp.device), rsp], dim=-1)
     else:
-        pack = torch.cat([Bd @ dhat, rsp - Hr @ (Cd @ dhat)])
-    r = Ginv @ pack
-    return r[:nx], r[nx:]
+        pack = torch.cat([matvec(Bd, dhat), rsp - matvec(Hr, matvec(Cd, dhat))],
+                         dim=-1)
+    r = matvec(Ginv, pack)
+    return r[..., :nx], r[..., nx:]
 
 
 def lqr_control(G, xhat, xr, ur):
     """u = -G (xhat - xr) + ur (reference ctr_control, src/ctr.c:282-292;
     present but commented out of the reference loop at src/ctr.c:423)."""
-    return -G @ (xhat - xr) + ur
+    return matvec(-G, xhat - xr) + ur
 
 
 def estimate_forward(A, B, Bd, xhat, dhat, u):
@@ -144,10 +152,10 @@ def estimate_forward(A, B, Bd, xhat, dhat, u):
 
     Parity: reference ctr_estimate (src/ctr.c:294-332).
     """
-    xhatm = A @ xhat + B @ u
+    xhatm = matvec(A, xhat) + matvec(B, u)
     if Bd is None:
         return xhatm, None
-    return xhatm + Bd @ dhat, dhat
+    return xhatm + matvec(Bd, dhat), dhat
 
 
 def actuate(ode, jacobian, x, u, p, xs, us, ps, dt):

@@ -18,7 +18,8 @@ one plaintext matrix on one packed slot vector:
     u  = (M w)[:nu]
 
 One encrypt, one hoisted gemv, one decrypt per step.  Depth, scales and
-the noise canary are those of the reference-shaped regulator.
+the noise canary are those of the reference-shaped regulator.  Inputs
+[..., n] are a batch of loops, packed and encrypted at once.
 
 ``fused_du_matrix`` is the packed matrix of the constrained variant: it
 computes the full du_unc vector (rows 0..m*horizon-1), optionally in the
@@ -34,7 +35,7 @@ from hectr_tpu_torch.ckks import scheme as S
 from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.gemv import gemv_apply, gemv_materials
 from hectr_tpu_torch.ckks.scheme import KeySet, Sampler
-from hectr_tpu_torch.hempc.regulator import regulator_gains
+from hectr_tpu_torch.hempc.regulator import broadcast_loops, regulator_gains
 
 
 def pack_offset(slots: int, d: int) -> int:
@@ -94,16 +95,18 @@ def make_fused_materials(ctx: CKKSContext, rot_keys: dict, model, plant,
 def enc_pack(ctx: CKKSContext, keys: KeySet, xhat, uhat, xr, ur,
              sampler: Sampler, k: int | None = None) -> S.Ciphertext:
     """One encryption of the packed vector w = [xhat,uhat | xr,ur]: the
-    fused protocol's whole per-step upload."""
+    fused protocol's whole per-step upload ([..., n] inputs: one
+    ciphertext per row)."""
     k = ctx.max_limbs if k is None else k
-    nx = xhat.shape[0]
-    d = nx + uhat.shape[0]
+    nx = xhat.shape[-1]
+    d = nx + uhat.shape[-1]
     off = pack_offset(ctx.slots, d)
-    z = torch.zeros(ctx.slots, dtype=torch.float64, device=xhat.device)
-    z[:nx] = xhat
-    z[nx:d] = uhat
-    z[off:off + nx] = xr
-    z[off + nx:off + d] = ur
+    z = torch.zeros((*xhat.shape[:-1], ctx.slots), dtype=torch.float64,
+                    device=xhat.device)
+    z[..., :nx] = xhat
+    z[..., nx:d] = uhat
+    z[..., off:off + nx] = xr
+    z[..., off + nx:off + d] = ur
     return S.encrypt(ctx, keys, S.encode(ctx, (z, torch.zeros_like(z)), k),
                      sampler)
 
@@ -117,10 +120,11 @@ def make_fused_regulator(ctx: CKKSContext, keys: KeySet, model, plant,
 
     def regulator(state, xhat, uhat, xr, ur):
         sampler, canary = state
+        xhat, uhat, xr, ur = broadcast_loops(xhat, uhat, xr, ur)
         ct = enc_pack(ctx, keys, xhat, uhat, xr, ur, sampler)
         ct_u = gemv_apply(ctx, gemv_mats, ct)
         re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, ct_u))
-        canary = torch.maximum(canary, torch.max(torch.abs(im)))
-        return re[:nu], (sampler, canary)
+        canary = torch.maximum(canary, torch.abs(im).amax(-1))
+        return re[..., :nu], (sampler, canary)
 
     return regulator

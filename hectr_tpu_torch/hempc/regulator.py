@@ -9,6 +9,11 @@ Mirrors the reference flow (src/ctr.c:587-590 per step), as
 
 With du box bounds the server also runs the encrypted projected-gradient
 QP (hempc.qp_enc) on du before the final add.
+
+One closure serves one loop or a batch of independent loops (the JAX
+package vmaps its regulator over them): inputs [..., n], one batched
+encryption, gemv and decryption per step for all of them, keys and gemv
+materials shared, one canary per loop.  The encrypted QP takes one loop.
 """
 
 from __future__ import annotations
@@ -36,12 +41,21 @@ def regulator_gains(model: LinearModel, plant: Plant, horizon: int):
     return mpc_gains(ny, nx, nu, horizon, model.A, model.B, model.C, Q, R)
 
 
-def hempc_init_state(sampler: Sampler, device):
+def broadcast_loops(*vs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Vectors [..., n] expanded to their common leading dims, so that an
+    input shared by every loop (a setpoint) is encrypted per loop as the
+    JAX package's vmap does."""
+    lead = torch.broadcast_shapes(*(v.shape[:-1] for v in vs))
+    return tuple(v.expand(*lead, -1) for v in vs)
+
+
+def hempc_init_state(sampler: Sampler, device, batch: tuple[int, ...] = ()):
     """Initial regulator state: (encryption sampler, imaginary-residue
-    canary).  The canary accumulates max |Im(decode)| over the loop --
-    the reference asserts it < 1e-5 on every decode (src/ctr.c:493-494);
-    the caller asserts it after the loop."""
-    return (sampler, torch.zeros((), dtype=torch.float64, device=device))
+    canary [*batch], one per loop).  The canary accumulates max
+    |Im(decode)| over the loop -- the reference asserts it < 1e-5 on
+    every decode (src/ctr.c:493-494); the caller asserts it after the
+    loop."""
+    return (sampler, torch.zeros(batch, dtype=torch.float64, device=device))
 
 
 def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
@@ -50,7 +64,8 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
                          qp_degree: int = 7, qp_input_bound=3.0):
     """Build the encrypted regulator closure; its state is
     (sampler, canary) from `hempc_init_state`: fresh encryption
-    randomness every step.
+    randomness every step.  The closure maps xhat [..., nx], uhat
+    [..., nu], xr, ur to u [..., nu]: leading dims are a batch of loops.
 
     With `bounds` carrying dumin/dumax (an MPCBounds) and a relin_key,
     the regulator solves the box-constrained QP over ciphertext by
@@ -91,11 +106,18 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
     def enc_vec(v, sampler):
         # d2z_vector parity (src/matrices.c:124-131): zero-extend the
         # real vector into the slot space
-        zre = torch.cat([v, zeros[v.shape[0]:]])
-        return S.encrypt(ctx, keys, S.encode(ctx, (zre, zeros), k_top), sampler)
+        lead = v.shape[:-1]
+        zre = torch.cat([v, zeros[v.shape[-1]:].expand(*lead, -1)], dim=-1)
+        return S.encrypt(ctx, keys, S.encode(
+            ctx, (zre, zeros.expand(*lead, -1)), k_top), sampler)
 
     def regulator(state, xhat, uhat, xr, ur):
         sampler, canary = state
+        xhat, uhat, xr, ur = broadcast_loops(xhat, uhat, xr, ur)
+        if qp_solve is not None and xhat.dim() > 1:
+            raise ValueError("the encrypted QP (hempc.qp_enc) takes one "
+                             "loop: a batch with du bounds needs a batched "
+                             "QP, which is not ported")
         ct_xhat = enc_vec(xhat, sampler)
         ct_uhat = enc_vec(uhat, sampler)
         ct_xr = enc_vec(xr, sampler)
@@ -112,7 +134,7 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
         # --- back across the trust boundary --------------------------
         re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, ct_u))
         # imaginary-residue noise canary (src/ctr.c:493-494 parity)
-        canary = torch.maximum(canary, torch.max(torch.abs(im)))
-        return re[:nu], (sampler, canary)
+        canary = torch.maximum(canary, torch.abs(im).amax(-1))
+        return re[..., :nu], (sampler, canary)
 
     return regulator

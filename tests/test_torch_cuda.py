@@ -171,8 +171,8 @@ class NumpySampler:
     def __init__(self, seed):
         self.rng = np.random.default_rng(seed)
 
-    def _tern(self, n):
-        r = self.rng.integers(0, 4, n)
+    def _tern(self, *shape):
+        r = self.rng.integers(0, 4, shape)
         return torch.from_numpy((r == 3).astype(np.int64) - (r == 0))
 
     def _gauss(self, *shape):
@@ -187,8 +187,9 @@ class NumpySampler:
         return (self._tern(ctx.n), self._uniform(ctx.data_primes, n=ctx.n),
                 self._gauss(ctx.n))
 
-    def encryption(self, ctx, k, device):
-        return self._tern(ctx.n), self._gauss(ctx.n), self._gauss(ctx.n)
+    def encryption(self, ctx, k, batch, device):
+        return (self._tern(*batch, ctx.n), self._gauss(*batch, ctx.n),
+                self._gauss(*batch, ctx.n))
 
     def switching_key(self, ctx, dnum, primes, device):
         return self._uniform(primes, dnum, n=ctx.n), self._gauss(dnum, ctx.n)
@@ -448,16 +449,15 @@ def test_stacked_kernels_bit_equal_plain_local_stages(cuda_device, logn, size):
 
 @pytest.mark.parametrize("logn,size", [(16, 2), (17, 4), (17, 8)])
 def test_large_ring_on_a_local_mesh(cuda_device, logn, size):
-    """Rings above one kernel row: ntt itself refuses them on the card,
-    the local mesh carries them, bit-equal to the plain transform."""
+    """Rings above one kernel row: the local mesh carries them (ntt
+    itself routes them there, test_ntt_above_2_15_on_cuda_bit_equal_cpu),
+    bit-equal to the plain transform."""
     from hectr_tpu_torch.parallel import LocalMesh
     from hectr_tpu_torch.parallel.ntt_shard import local_ntt_fns
 
     primes = tuple(find_ntt_primes(30, 3, 2 << logn))
     t = T.ntt_tables(1 << logn, primes, cuda_device)
     a = residues(primes, (3, 1 << logn), logn).to(cuda_device)
-    with pytest.raises(ValueError, match="supports"):
-        T.ntt(a, t)
     mesh = LocalMesh(size)
     fwd_fn, inv_fn = local_ntt_fns(t, mesh)
     before = dict(ntt_cuda.LAUNCHES)
@@ -502,3 +502,126 @@ def test_coeff_ops_on_cuda_bit_equal_single_device(cuda_device):
     prod = S.mul_pt(ctx, ct, pt2)
     assert torch.equal(ops.rescale_pair(prod).data,
                        S.rescale_pair(ctx, prod).data)
+
+
+# ---- the batch axis and rings above 2^15 on the card -----------------------
+
+
+@pytest.mark.parametrize("logn", [16, 17])
+def test_ntt_above_2_15_on_cuda_bit_equal_cpu(cuda_device, logn):
+    """ntt / intt of a ring above one kernel row on the card (routed to
+    the sharded transform on a local mesh of N / 2^15 shards, K1/K2 on
+    its local stages) give the CPU's plain transform, bit for bit, over
+    22 limbs (30-bit primes: 2^18 leaves too few 25-bit ones)."""
+    primes = tuple(find_ntt_primes(30, 22, 2 << logn))
+    a = residues(primes, (22, 1 << logn), logn)
+    t_cpu = T.ntt_tables(1 << logn, primes, CPU)
+    t = T.ntt_tables(1 << logn, primes, cuda_device)
+    before = dict(ntt_cuda.LAUNCHES)
+    fwd = T.ntt(a.to(cuda_device), t)
+    inv = T.intt(fwd, t)
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES["ntt"] > before["ntt"]
+    assert ntt_cuda.LAUNCHES["intt"] > before["intt"]
+    want = T.ntt_plain(a, t_cpu)
+    assert torch.equal(fwd.cpu(), want)
+    assert torch.equal(inv.cpu(), T.intt_plain(want, t_cpu))
+    assert torch.equal(inv.cpu(), a)
+
+
+def test_hectx_init_16_chain_round_trip_on_cuda(cuda_device):
+    """The chain he.hectx_init(16, 109, 16, 50) asks for, on the card:
+    encrypt -> mul_pt -> rescale_pair -> decrypt to 1e-6, every transform
+    a ring of 2^16.  hectx_init itself refuses logN=16 on every device,
+    as the JAX package's does: the HE standard's table that sizes its
+    security report stops at 2^15."""
+    from hectr_tpu_torch import he
+
+    with pytest.raises(ValueError, match="no HE-standard row"):
+        he.hectx_init(16, 109, 16, 50, seed=0, device=cuda_device)
+    ctx = make_context(cfg.CKKSPreset(name="he-16-109", logn=16, slots=16,
+                                      scale_bits=50, limb_bits=25,
+                                      mult_depth=1))
+    k = ctx.max_limbs
+    keys = S.keygen(ctx, S.TorchSampler(0, cuda_device), cuda_device)
+    v = torch.linspace(-1, 1, 16, dtype=torch.float64, device=cuda_device)
+    w = torch.linspace(0.5, -0.5, 16, dtype=torch.float64, device=cuda_device)
+    zero = torch.zeros_like(v)
+    before = dict(ntt_cuda.LAUNCHES)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (v, zero), k),
+                   S.TorchSampler(1, cuda_device))
+    pt = S.encode(ctx, (w, zero), k, ctx.pair_scale(k))
+    out = S.rescale_pair(ctx, S.mul_pt(ctx, ct, pt))
+    re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, out))
+    assert ntt_cuda.LAUNCHES["ntt"] > before["ntt"]
+    assert re.device == cuda_device and ctx.n == 1 << 16
+    assert float((re - v * w).abs().max()) < 1e-6
+    assert float(im.abs().max()) < 1e-6
+    # the route caches the local tables of every (ring, primes) it met;
+    # clearing them gives their device memory back
+    from hectr_tpu_torch.parallel.ntt_shard import clear_local_tables
+
+    del ct, pt, out, re, im
+    held = torch.cuda.memory_allocated(cuda_device)
+    clear_local_tables()
+    assert torch.cuda.memory_allocated(cuda_device) < held
+
+
+def test_batched_flagship_gemv_on_cuda_equals_rows(cuda_device, monkeypatch):
+    """A batch of 4 FLAGSHIP ciphertexts through one BSGS gemv on the
+    card gives each row's 1-D gemv residues bit for bit (diagonals
+    encoded on the CPU, as test_scheme_on_cuda_bit_equal_cpu does), with
+    as many NTT launches as one 1-D gemv."""
+    encode_diags = G._encode_diags
+    monkeypatch.setattr(G, "_encode_diags", lambda ctx, D, k, scale, device:
+                        encode_diags(ctx, D, k, scale, CPU).to(device))
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.hempc.fused import make_fused_materials
+
+    ctx, keys, rk = cli.hempc_keys(cfg.FLAGSHIP, 0, cuda_device,
+                                   G.bsgs_rotations(cfg.FLAGSHIP.slots))
+    model, plant = cli.cstr_setup()
+    mats = make_fused_materials(ctx, rk, model, plant, 4, cuda_device)
+    vals = torch.from_numpy(np.random.default_rng(8).uniform(
+        -0.01, 0.01, (4, ctx.slots))).to(cuda_device)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (vals, torch.zeros_like(vals)),
+                                       ctx.max_limbs), NumpySampler(4))
+    ntt_cuda.reset_launches()
+    got = G.gemv_apply(ctx, mats, ct).data
+    batched = dict(ntt_cuda.LAUNCHES)
+    for i in range(4):
+        ntt_cuda.reset_launches()
+        one = G.gemv_apply(ctx, mats, S.Ciphertext(ct.data[i], ct.scale)).data
+        assert dict(ntt_cuda.LAUNCHES) == batched
+        assert torch.equal(got[i], one), i
+
+
+@pytest.mark.parametrize("slots", [2, 4, 8, 16, 32, 64])
+def test_matrix_embedding_of_one_row_on_cuda_keeps_its_bits(cuda_device, slots):
+    """A 1-D matrix-branch embed on the card is the row-times-matrix
+    product a batch takes; it gives the transposed matrix-vector product
+    ``(ReE.T @ re + ImE.T @ im) / s`` bit for bit, so 1-D encodes on the
+    card are what they were before the batch axis."""
+    from hectr_tpu_torch.ckks import encoding as E
+
+    ReE, ImE = E._device_embedding(slots, cuda_device)
+    rng = np.random.default_rng(slots)
+    for _ in range(20):
+        re, im = (torch.from_numpy(rng.uniform(-3, 3, slots)).to(cuda_device)
+                  for _ in range(2))
+        assert torch.equal(E.embed_ri(re, im, slots),
+                           (ReE.T @ re + ImE.T @ im) / slots)
+
+
+def test_batched_matvec_on_cuda_is_one_product_near_each_row(cuda_device):
+    """On the card a batch of rows goes through one product; each row
+    lies within 1e-12 of its own 1-D product."""
+    from hectr_tpu_torch.utils.rows import matvec
+
+    rng = np.random.default_rng(3)
+    M = torch.from_numpy(rng.normal(size=(5, 7))).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(64, 7))).to(cuda_device)
+    got = matvec(M, x)
+    assert got.shape == (64, 5)
+    for i in range(64):
+        assert float((got[i] - M @ x[i]).abs().max()) <= 1e-12

@@ -68,11 +68,15 @@ class JaxReplay:
                 _t(JS._sample_uniform(k_a, pcol, ctx.n)),
                 _t(JS._sample_gauss(k_e, ctx.n)))
 
-    def encryption(self, ctx, k, device):
-        k_v, k_e0, k_e1 = jax.random.split(next(self.enc_keys), 3)
-        return (_t(JS._sample_ternary(k_v, ctx.n)),
-                _t(JS._sample_gauss(k_e0, ctx.n)),
-                _t(JS._sample_gauss(k_e1, ctx.n)))
+    def encryption(self, ctx, k, batch, device):
+        # one encryption key per row of the batch, taken in row order
+        draws = []
+        for _ in range(int(np.prod(batch, dtype=np.int64))):
+            k_v, k_e0, k_e1 = jax.random.split(next(self.enc_keys), 3)
+            draws.append((JS._sample_ternary(k_v, ctx.n),
+                          JS._sample_gauss(k_e0, ctx.n),
+                          JS._sample_gauss(k_e1, ctx.n)))
+        return tuple(_t(np.stack(d)).reshape(*batch, ctx.n) for d in zip(*draws))
 
     def switching_key(self, ctx, dnum, primes, device):
         k_a, k_e = jax.random.split(next(self.switch_keys))
