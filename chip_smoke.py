@@ -63,6 +63,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      Rows 0 and B-1 of a 4-step run against the 1-D regulator with the
      same draws: ciphertexts bit-equal where the encodes agree, u to
      1e-12.  Aggregate steps/s and peak device memory for each
+     "limb" (after "batch", FLAGSHIP on phase 4's keys sharded by row):
+     LimbOps on local limb meshes of 2 and 3 shards (rescale_pair, digit
+     decomposition, key_switch, rotate, BSGS gemv) bit-equal to the
+     single-device ops, the gemv decrypted and decoded to 1e-6; 4 CSTR
+     loops x 40 steps of the reference-shaped regulator on
+     LocalLimbMesh(2): u and x bit-equal to the unsharded batched
+     regulator on the same draws, each loop <= 2e-9 per channel from its
+     plaintext twin, canaries < 1e-5, final states; K1/K2 bit-equal to
+     plain at every shard shape the phase launched them at (printed by
+     shape); bytes gathered per step by kind, device ms and CUDA launches
+     per step sharded and unsharded, peak memory, key bytes per shard;
+     two gloo ranks sharing the card (bench/run_multiproc.py --limb 2),
+     one FLAGSHIP step each, bit-equal on its rows
   9. "medium": MEDIUM at full width (logN=14, 8192 slots, 12 limbs):
      FFT embedding on the card = the CPU's to 1e-12; encrypt/decrypt of
      8192 complex slots to 1e-6; rotations by 1 and 7; a 5-level ct x ct
@@ -71,7 +84,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      M v, with its key and plaintext-grid bytes, peak device memory and
      times
  10. each kernel launched on every path that uses it (K1/K2 in phases
-     3, 4, 6-9, "parallel" and "batch", with their launches by shape; K3 in phase
+     3, 4, 6-9, "parallel", "batch" and "limb", with their launches by
+     shape; K3 in phase
      5); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
@@ -79,6 +93,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import subprocess
@@ -799,6 +814,213 @@ def phase_batch(device, flagship, card):
     return total
 
 
+def phase_limb(device, flagship, card):
+    """The limb axis at FLAGSHIP on phase 4's keys: LimbOps on local limb
+    meshes of 2 and 3 shards, K1/K2 at the shard shapes, 4 loops x 40
+    steps of the reference-shaped regulator on LocalLimbMesh(2) against
+    the unsharded batched regulator, and two gloo ranks sharing the
+    card."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.bench import batch as BB
+    from hectr_tpu_torch.bench import run_multiproc
+    from hectr_tpu_torch.ckks import gemv as G
+    from hectr_tpu_torch.ckks import keyswitch as K
+    from hectr_tpu_torch.ckks import ntt as T
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.control.simulate import simulate_batch
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.ops import ntt_cuda
+    from hectr_tpu_torch.parallel import make_mesh
+    from hectr_tpu_torch.parallel.limb_ops import LimbOps
+
+    ctx, keys, rot_keys, _, _ = flagship
+    k = ctx.max_limbs
+    model, plant = cli.cstr_setup()
+    v = torch.linspace(-1.0, 1.0, ctx.slots, dtype=torch.float64,
+                       device=device)
+    zero = torch.zeros_like(v)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (v, zero), k),
+                   S.TorchSampler(80, device))
+    prod = S.mul_pt(ctx, ct, S.encode(ctx, (2.0 * v, zero), k,
+                                      scale=ctx.pair_scale(k)))
+    M = np.random.default_rng(81).normal(size=(ctx.slots, ctx.slots)) / 4
+    shard_shapes = collections.Counter()
+    total = {"ntt": 0, "intt": 0}
+
+    def tally():
+        shard_shapes.update(ntt_cuda.LAUNCH_SHAPES)
+        for name in total:
+            total[name] += ntt_cuda.LAUNCHES[name]
+
+    # the ops on local limb meshes of 2 and 3, the sharded path alone
+    # counted; the single-device references and comparisons follow
+    reset_launches()
+    got = {}
+    for D in (2, 3):
+        ops = LimbOps(ctx, make_mesh(limb=D, device=device))
+        keys_l = ops.shard_keys(rot_keys)
+        lct = ops.shard_ct(ct)
+        gv = ops.gemv_apply(ops.gemv_materials(M, k, rot_keys, device, "bsgs"),
+                            lct)
+        got[D] = {
+            "rescale_pair": ops.gather_ct(ops.rescale_pair(ops.shard_ct(prod))),
+            "digits": torch.cat(ops.decompose(ops.shard_data(ct.data[1]), k),
+                                dim=-2),
+            "key_switch": torch.cat(ops.key_switch(
+                ops.shard_data(ct.data[1]), keys_l[1], k), dim=-2),
+            "rotate": ops.gather_ct(ops.rotate(lct, 1, keys_l)),
+            "gemv": ops.gather_ct(gv),
+            "decoded": ops.decode(ops.decrypt(ops.shard_keyset(keys), gv)),
+            # each shard's rows of the extended digits: data, then special
+            "order": torch.cat([torch.cat([
+                torch.arange(*ops.rows.data_rows(s, k)),
+                k + torch.arange(*ops.rows.special_rows(s))])
+                for s in ops.held]),
+        }
+    torch.cuda.synchronize()
+    tally()
+    print_launch_shapes("limb ops", 1, "phase (D = 2 and 3)")
+    want = {
+        "rescale_pair": S.rescale_pair(ctx, prod),
+        "digits": K.decompose_digits(ctx, ct.data[1]),
+        "key_switch": K.key_switch(ctx, ct.data[1], rot_keys[1]),
+        "rotate": K.rotate(ctx, ct, 1, rot_keys),
+        "gemv": G.gemv_apply(ctx, G.gemv_materials(ctx, M, k, rot_keys, device,
+                                                   "bsgs"), ct),
+    }
+    expect = M @ v.cpu().numpy()
+    errs = {}
+    for D, g in got.items():
+        for name, w in want.items():
+            if name == "digits":
+                same = torch.equal(g[name], w.index_select(
+                    -2, g["order"].to(device)))
+            elif name == "key_switch":
+                same = torch.equal(g[name], w)
+            else:
+                same = torch.equal(g[name].data, w.data) and \
+                    g[name].scale == w.scale
+            check(same, f"limb: LimbOps {name} != single device at D={D}")
+        errs[D] = float(np.abs(g["decoded"].cpu().numpy().real - expect).max())
+        check(errs[D] <= 1e-6, f"limb: decoded gemv off by {errs[D]} at D={D}")
+    print(f"[limb] LimbOps at FLAGSHIP ({k} + {len(ctx.special_primes)} rows), "
+          f"D = 2, 3: rescale_pair, digit decomposition, key_switch, "
+          f"rotate(1), BSGS gemv bit-equal to the single-device ops; decrypted "
+          f"+ decoded gemv max err {errs}", flush=True)
+    del got, want
+
+    # B = 4 loops x 40 steps on LocalLimbMesh(2) against the unsharded
+    # batched regulator with the same draws
+    B, steps = 4, 40
+    p = np.stack([cli.disturbance(steps)] * B)
+    ops = LimbOps(ctx, make_mesh(limb=2, device=device))
+    reg_l = make_hempc_regulator(ctx, keys, rot_keys, model, plant, 4,
+                                 ops=ops)
+    reg = make_hempc_regulator(ctx, keys, rot_keys, model, plant, 4)
+    runs = {}
+    for label, r in (("sharded", reg_l), ("unsharded", reg)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        ops.gathered.clear()
+        t0 = time.perf_counter()
+        x, u, (_, canary) = simulate_batch(
+            model, plant, p, 1.0, steps, device, r,
+            hempc_init_state(S.TorchSampler(82, device), device, (B,)), 4)
+        torch.cuda.synchronize()
+        runs[label] = dict(x=x, u=u, canary=canary.cpu().numpy(),
+                           wall=time.perf_counter() - t0,
+                           peak=torch.cuda.max_memory_allocated(device),
+                           launches=dict(ntt_cuda.LAUNCHES))
+        if label == "sharded":
+            tally()
+            runs[label]["gathered"] = {w: n / steps
+                                       for w, n in ops.gathered.items()}
+            print_launch_shapes("limb loop", steps, "step")
+    sh, un = runs["sharded"], runs["unsharded"]
+    check(np.array_equal(sh["u"], un["u"]) and np.array_equal(sh["x"], un["x"]),
+          "limb: sharded loop u / x differ from the unsharded batched loop")
+    x_pt, u_pt, _ = simulate_batch(model, plant, p, 1.0, steps, device,
+                                   horizon=4)
+    dev = np.stack([deviations(sh["x"][b], sh["u"][b], x_pt[b], u_pt[b])
+                    for b in range(B)])
+    print(f"[limb] FLAGSHIP reference-shaped regulator on LocalLimbMesh(2), "
+          f"{B} loops x {steps} steps: u and x bit-equal to the unsharded "
+          f"batched regulator at every step; max |encrypted - plaintext| per "
+          f"channel {dev.max(axis=0).tolist()}; canaries "
+          f"{sh['canary'].min():.3e}..{sh['canary'].max():.3e}; final states "
+          f"{sh['x'][:, -1].tolist()}", flush=True)
+    check(bool((dev <= 2e-9).all()), f"limb: deviation {dev.max(axis=0)}")
+    check(bool((sh["canary"] < 1e-5).all()), f"limb: canary {sh['canary']}")
+    check(all(np.allclose(sh["x"][b, -1], FLAGSHIP_FINAL_STATE, rtol=1e-4,
+                          atol=0) for b in range(B)),
+          f"limb: final states {sh['x'][:, -1]}")
+
+    # K1/K2 against plain at every shard shape the phase launched them at
+    gen = torch.Generator(device=device)
+    gen.manual_seed(83)
+    shapes = sorted({shape for _, shape in shard_shapes})
+    for shape in shapes:
+        n, rows = shape[-1], shape[-2]
+        t = T.ntt_tables(n, ctx.full_primes[:rows], device)
+        x = random_residues(t.primes, shape[:-2], n, gen, device)
+        check(torch.equal(T.ntt(x, t), T.ntt_plain(x, t))
+              and torch.equal(T.intt(x, t), T.intt_plain(x, t)),
+              f"limb: K1/K2 != plain at {list(shape)}")
+    print(f"[limb] K1/K2 bit-equal to plain at the phase's {len(shapes)} "
+          f"launch shapes: {[list(s) for s in shapes]}", flush=True)
+
+    # device ms and CUDA launches per step (torch.profiler over one step
+    # each), gathered bytes, peak memory, key bytes
+    xs, u0 = BB.protocol_inputs(B, 1, device, seed=7)
+    zx = torch.zeros(3, dtype=torch.float64, device=device)
+    zu = torch.zeros(2, dtype=torch.float64, device=device)
+    prof = {}
+    for label, r in (("sharded", reg_l), ("unsharded", reg)):
+        state = hempc_init_state(S.TorchSampler(84, device), device, (B,))
+        r(state, xs[:, 0], u0, zx, zu)
+        prof[label] = BB.profile_kernels(
+            lambda r=r, state=state: r(state, xs[:, 0], u0, zx, zu))
+    key_bytes = [0, 0]
+    for key in rot_keys.values():
+        for s, n in enumerate(ops.key_bytes(ops.shard_key(key))):
+            key_bytes[s] += n
+    print(f"[limb] per batched step of {B} loops at FLAGSHIP on {card}: "
+          f"gathered bytes by op {json.dumps(sh['gathered'])} (sum "
+          f"{sum(sh['gathered'].values()):.0f} B); sharded "
+          f"{prof['sharded']['device_ms']:.3f} device ms, "
+          f"{prof['sharded']['kernel_launches']} CUDA launches; unsharded "
+          f"{prof['unsharded']['device_ms']:.3f} device ms, "
+          f"{prof['unsharded']['kernel_launches']} CUDA launches; NTT "
+          f"launches per step sharded "
+          f"{ {n: c / steps for n, c in sh['launches'].items()} } unsharded "
+          f"{ {n: c / steps for n, c in un['launches'].items()} }; 40-step "
+          f"loop {sh['wall']:.3f} s sharded, {un['wall']:.3f} s unsharded; "
+          f"peak device memory {sh['peak']} B sharded, {un['peak']} B "
+          f"unsharded; BSGS key bytes per shard {key_bytes} (whole "
+          f"{sum(key_bytes)})", flush=True)
+
+    # two gloo ranks sharing the card, one FLAGSHIP regulator step each
+    rec = run_multiproc.launch(2, "cuda", 15, 4, "flagship", 300.0, limb=2)
+    check(rec["ok"] and rec["bitexact_per_shard"] and rec["ranks"] == 2,
+          f"limb: two-rank run {rec}")
+    for st in rec["limb_steps"]:
+        print(f"[limb] {st['limb_mesh']}: one FLAGSHIP step over "
+              f"{st['loops']} loops bit-equal on this rank's rows "
+              f"({st['checked']} ciphertexts and plaintexts); timed step "
+              f"{st['step_ms']:.1f} ms; gathered {st['gathered_bytes']} B; "
+              f"digit-stack gather {st['gather_bytes']} B at "
+              f"{st['gather_gb_per_s']:.4f} GB/s through the host (not a link "
+              f"between cards); BSGS key blocks on this rank "
+              f"{st['key_block_bytes']} B; device memory held for the "
+              f"sharded step {st['held_bytes']} B, peak of the timed steps "
+              f"{st['step_peak_bytes']} B, peak of the check "
+              f"{st['check_peak_bytes']} B (both ranks share the card)",
+              flush=True)
+    print(f"[limb] two ranks on one card: {rec['elapsed_s']} s", flush=True)
+    return total
+
+
 def phase_qp(device, card):
     """The constrained encrypted loop at FLAGSHIP_QP, set up as
     scripts/run_flagship_qp_tpu.py sets it up, against its plaintext
@@ -1226,6 +1448,8 @@ def main() -> None:
         launches_par = phase_parallel(device, flagship, card)
     with timer.section("batch"):
         launches_batch = phase_batch(device, flagship, card)
+    with timer.section("limb"):
+        launches_limb = phase_limb(device, flagship, card)
     del flagship
     with timer.section("flagship-qp"):
         launches_qp = phase_qp(device, card)
@@ -1236,7 +1460,7 @@ def main() -> None:
 
     loops = (("reference-hempc", launches_ref), ("flagship", launches_flag),
              ("fused", launches_fused), ("parallel", launches_par),
-             ("batch", launches_batch),
+             ("batch", launches_batch), ("limb", launches_limb),
              ("flagship-qp", launches_qp),
              ("he", launches_he), ("medium", launches_medium))
     for label, launches in loops:

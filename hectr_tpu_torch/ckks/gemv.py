@@ -130,7 +130,8 @@ def gemv_materials(ctx: CKKSContext, M: np.ndarray, k: int, rot_keys: dict,
                    device, method: str = "auto") -> dict:
     """The static operands of an encrypted gemv with matrix M at k
     input limbs, on `device`: a dict keyed "diag" or "bsgs" by the
-    resolved method."""
+    resolved method.  Each rotation's entry names its rotation "r" beside
+    its permutation and its key sliced to level k."""
     method, diags, active = _resolve_method(ctx, M, rot_keys, method)
     build = _materials_diag if method == "diag" else _materials_bsgs
     return build(ctx, diags, active, k, rot_keys, resolve_device(device))
@@ -174,6 +175,7 @@ def _materials_diag(ctx, diags, active, k, rot_keys, device) -> dict:
             d["pt0"] = pt
             continue
         d["rot"].append({
+            "r": r,
             "perm": permutation(ctx.n, galois_element(r, ctx.n), device),
             "ksk": slice_key(ctx, rot_keys[r], k),
             "pt": pt,
@@ -232,13 +234,15 @@ def _materials_bsgs(ctx, diags, active, k, rot_keys, device) -> dict:
         return _encode_diags(ctx, D, k, pair, device)       # [n1, k, N]
 
     b: dict = {"n1": n1, "baby": [
-        {"perm": permutation(ctx.n, galois_element(bb, ctx.n), device),
+        {"r": bb,
+         "perm": permutation(ctx.n, galois_element(bb, ctx.n), device),
          "ksk": slice_key(ctx, rot_keys[bb], k)}
         for bb in range(1, n1)]}
     if 0 in groups:
         b["pt0"] = encode_group(0)
     b["giant"] = [
-        {"perm": permutation(ctx.n, galois_element(g * n1, ctx.n), device),
+        {"r": g * n1,
+         "perm": permutation(ctx.n, galois_element(g * n1, ctx.n), device),
          "ksk": slice_key(ctx, rot_keys[g * n1], k),
          "pt": encode_group(g)}
         for g in groups if g > 0]

@@ -235,14 +235,20 @@ def _inner_product(ctx: CKKSContext, digits: torch.Tensor, ksk: torch.Tensor,
     (Shoup products with the stored companions) or [dnum, 2, k+S, N] in
     the compact layout (Barrett products), shared by every leading row;
     then one sum + Barrett pass over the digit axis -> [..., 2, k+S, N]."""
-    tks = ctx.tables_ks(k, digits.device)
     ksk_l = ksk if sliced else slice_key(ctx, ksk, k)
-    d = digits.unsqueeze(-3)                              # [..., dnum, 1, k+S, N]
+    return key_inner_product(digits, ksk_l, ctx.tables_ks(k, digits.device))
+
+
+def key_inner_product(digits: torch.Tensor, ksk_l: torch.Tensor,
+                      t) -> torch.Tensor:
+    """``_inner_product`` over the rows whose primes `t` holds (p, mu, k
+    columns): digits [..., dnum, R, N], key [dnum, 4 or 2, R, N]."""
+    d = digits.unsqueeze(-3)                              # [..., dnum, 1, R, N]
     if ksk_l.shape[1] == 4:
-        prod = mul_mod_shoup(d, ksk_l[:, :2], ksk_l[:, 2:], tks.p)
+        prod = mul_mod_shoup(d, ksk_l[:, :2], ksk_l[:, 2:], t.p)
     else:
-        prod = mul_mod(d, ksk_l, tks.p, tks.mu, tks.k)
-    return sum_mod(prod, -4, tks.p, tks.mu, tks.k)
+        prod = mul_mod(d, ksk_l, t.p, t.mu, t.k)
+    return sum_mod(prod, -4, t.p, t.mu, t.k)
 
 
 def _mod_down_special(ctx: CKKSContext, acc: torch.Tensor, k: int) -> torch.Tensor:

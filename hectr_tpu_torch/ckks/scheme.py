@@ -241,7 +241,17 @@ def decode_ri(ctx: CKKSContext, pt: Plaintext) -> tuple[torch.Tensor, torch.Tens
     coeffs = intt(pt.data[..., :k, :], t)[..., ::stride]  # [..., k, 2s]
     dc = ctx.decode_constants(k, pt.scale, device)
     c = mul_mod(coeffs, dc.inv, t.p, t.mu, t.k)          # CRT digits
-    acc_hi = torch.zeros(c[..., 0, :].shape, dtype=torch.float64, device=device)
+    return crt_decode(ctx, c, dc)
+
+
+def crt_decode(ctx: CKKSContext, c: torch.Tensor,
+               dc) -> tuple[torch.Tensor, torch.Tensor]:
+    """CRT digits c [..., k, 2s] (``decode_ri``'s) -> slot values: the
+    double-double sum of c_i / p_i over the rows in row order, its
+    fractional part times Q/scale, unembedded."""
+    k = c.shape[-2]
+    acc_hi = torch.zeros(c[..., 0, :].shape, dtype=torch.float64,
+                         device=c.device)
     acc_lo = torch.zeros_like(acc_hi)
     for i in range(k):
         term = dd.dd_div_ff(c[..., i, :].to(torch.float64),

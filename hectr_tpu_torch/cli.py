@@ -287,7 +287,7 @@ def cmd_scaling(args) -> None:
     distributed = init_distributed(device=args.device)
     device = require_device(args.device)
     if distributed:
-        mesh = make_pod_mesh()
+        mesh = make_pod_mesh(device=device).coeff
     else:
         mesh = LocalMesh(max(2, 1 << max(0, args.logn - MAX_LOGN)))
     rep = ntt_scaling_efficiency(args.logn, args.depth * 2 + 2, mesh, device)

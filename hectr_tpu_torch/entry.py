@@ -5,13 +5,17 @@ entry()             -- one encrypted-MPC regulator update (encrypt ->
                        2 x hoisted gemv -> decrypt) at the reference CKKS
                        parameters (logN=12, slots=16, Delta=2^50): the
                        function and example arguments.
-dryrun_multichip(n) -- the coefficient axis over an n-shard local mesh,
-                       executed once: the sharded rescale on a real
-                       ciphertext, then the negacyclic product, a rotation
-                       and a hoisted gemv at the FLAGSHIP ring, each
-                       bit-equal to the single device, and the scaling
-                       record.  The JAX package's batch x limb step is not
-                       ported yet.
+dryrun_multichip(n) -- first the JAX dry run's batch x limb step: one
+                       full encrypted closed-loop step (measure -> Kalman
+                       -> selector -> encrypted regulator -> plant ->
+                       estimator) over n/2 loops with the regulator's keys,
+                       materials and ciphertexts sharded over 2 limb
+                       shards, on tiny shapes, bit-equal to the unsharded
+                       batched step; then the coefficient axis over an
+                       n-shard local mesh: the sharded rescale on a real
+                       ciphertext, the negacyclic product, a rotation and
+                       a hoisted gemv at the FLAGSHIP ring, each bit-equal
+                       to the single device, and the scaling record.
 
 Both run on the card unless the caller passes ``device="cpu"``.
 """
@@ -24,6 +28,11 @@ import numpy as np
 import torch
 
 from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC, CKKSPreset
+
+# the JAX dry run's tiny ring (__graft_entry__.py dryrun_multichip)
+DRYRUN = CKKSPreset(name="dryrun", logn=8, slots=16, scale_bits=50,
+                    limb_bits=25, mult_depth=1)
+HORIZON = 4
 
 # NVIDIA's H100 SXM data sheet: NVLink, 900 GB/s per card for both
 # directions together, so 450 GB/s each way.  Published, not measured.
@@ -58,9 +67,94 @@ def entry(device="cuda"):
                 zeros(2))
 
 
+def limb_step(ctx, keys, rot_keys, ops, p: np.ndarray, seed: int,
+              device) -> dict:
+    """One closed-loop step (``control.simulate.simulate_batch`` over the
+    loops of disturbances p [B, 1, np]) with the encrypted regulator on
+    the limb mesh of `ops`, then the same step with the unsharded batched
+    regulator (``SchemeOps``), both drawing from ``TorchSampler(seed)``
+    and both traced.  Raises unless x_next and u are bit-equal and every
+    ciphertext and plaintext of the sharded step equals, on each held
+    shard's rows, the unsharded one.  The unsharded regulator runs first
+    and is dropped before the sharded one is built.  Returns x
+    [B, 2, nx], u [B, 1, nu], the sharded regulator and the inputs it
+    took (to time it again)."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.ckks.scheme import TorchSampler
+    from hectr_tpu_torch.ckks.scheme_ops import SchemeOps
+    from hectr_tpu_torch.control.simulate import simulate_batch
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+
+    model, plant = cli.cstr_setup()
+    batch = (p.shape[0],)
+    seen = []
+
+    def run(op_set):
+        op_set.trace = []
+        reg = make_hempc_regulator(ctx, keys, rot_keys, model, plant,
+                                   HORIZON, ops=op_set)
+
+        def spy(state, *inputs):
+            seen.append(inputs)
+            return reg(state, *inputs)
+
+        x, u, _ = simulate_batch(model, plant, p, 1.0, 1, device, spy,
+                                 hempc_init_state(TorchSampler(seed, device),
+                                                  device, batch), HORIZON)
+        trace, op_set.trace = op_set.trace, None
+        return x, u, trace, reg
+
+    x1, u1, want = run(SchemeOps(ctx))[:3]    # its regulator is dropped
+    x, u, trace, reg_l = run(ops)
+    if not (np.array_equal(x, x1) and np.array_equal(u, u1)):
+        raise AssertionError("limb-sharded step: x_next or u differs from the "
+                             "unsharded batched step")
+    for (name, got), (_, ref) in zip(trace, want, strict=True):
+        parts = ops.shard_data(ref.data)
+        if (got.scale != ref.scale or got.limbs != ref.limbs
+                or not all(map(torch.equal, got.parts, parts))):
+            raise AssertionError(f"limb-sharded {name} differs from the "
+                                 f"unsharded step")
+    return {"x": x, "u": u, "regulator": reg_l, "inputs": seen[-1],
+            "checked": len(trace)}
+
+
+def batch_limb_step(n_devices: int, device) -> dict:
+    """The JAX dry run's first section: a batch = n/2 x limb = 2 mesh,
+    the tiny preset, rotation keys sharded on the extended-limb axis, one
+    full closed-loop step over n/2 loops (disturbance 0.01 each), held
+    bit-equal to the unsharded batched step (``limb_step``)."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.ckks.context import make_context
+    from hectr_tpu_torch.ckks.keyswitch import gen_rotation_keys
+    from hectr_tpu_torch.parallel import make_mesh
+    from hectr_tpu_torch.parallel.limb_ops import LimbOps
+
+    if n_devices < 2 or n_devices % 2:
+        raise ValueError(f"a batch x limb dry run needs an even number of "
+                         f"devices, got {n_devices}")
+    mesh = make_mesh(batch=n_devices // 2, limb=2, device=device)
+    ctx = make_context(DRYRUN)
+    keys = S.keygen(ctx, S.TorchSampler(0, device), device)
+    rot_keys = gen_rotation_keys(ctx, keys, S.TorchSampler(1, device))
+    ops = LimbOps(ctx, mesh)
+    p = np.full((mesh.shape["batch"], 1, 1), 0.01)
+    res = limb_step(ctx, keys, rot_keys, ops, p, 5, mesh.device)
+    _, plant = cli.cstr_setup()
+    x_next = res["x"][:, -1] - plant.xs
+    print(f"dryrun_multichip({n_devices}): mesh {dict(mesh.shape)}, "
+          f"encrypted step executed over {p.shape[0]} loops, bit-equal to the "
+          f"unsharded batched step (x_next, u, {res['checked']} ciphertexts "
+          f"and plaintexts); gathered {dict(ops.gathered)} B; |x_next| max = "
+          f"{np.abs(x_next).max():.3e}")
+    return res
+
+
 def dryrun_multichip(n_shards: int, device="cuda",
                      preset: CKKSPreset = FLAGSHIP) -> dict:
-    """Run the coefficient-sharded ops once over a local mesh of
+    """Run the batch x limb step (``batch_limb_step``) over n_shards / 2
+    loops, then the coefficient-sharded ops once over a local mesh of
     `n_shards` on `device`, assert each bit-equal to the single device,
     print the scaling record as ``MULTICHIP_SCALING {...}`` and return
     it.  `preset` is the large ring (at least 4 slots)."""
@@ -78,6 +172,7 @@ def dryrun_multichip(n_shards: int, device="cuda",
     if n_shards < 2:
         raise ValueError(f"a dry run needs at least 2 shards, got {n_shards}")
     device = cli.require_device(device)
+    batch_limb_step(n_shards, device)
     mesh = LocalMesh(n_shards)
 
     def ones(ctx, value):
@@ -86,8 +181,7 @@ def dryrun_multichip(n_shards: int, device="cuda",
                 torch.zeros(ctx.slots, dtype=torch.float64, device=device))
 
     # (a) the real scheme op on a coefficient-sharded REAL ciphertext
-    ctx = make_context(CKKSPreset(name="dryrun", logn=8, slots=16,
-                                  scale_bits=50, limb_bits=25, mult_depth=1))
+    ctx = make_context(DRYRUN)
     keys = S.keygen(ctx, S.TorchSampler(0, device), device)
     k = ctx.max_limbs
     pt2 = S.encode(ctx, ones(ctx, 2.0), k, scale=ctx.pair_scale(k))

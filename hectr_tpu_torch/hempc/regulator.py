@@ -14,6 +14,12 @@ One closure serves one loop or a batch of independent loops (the JAX
 package vmaps its regulator over them): inputs [..., n], one batched
 encryption, gemv and decryption per step for all of them, keys and gemv
 materials shared, one canary per loop.  The encrypted QP takes one loop.
+
+The step is written once, over an op set: ``ckks.scheme_ops.SchemeOps``
+on one device, or a limb mesh's ``parallel.limb_ops.LimbOps``, which
+runs it with every ciphertext, key and gemv material sharded by RNS row
+(the JAX package's ``key_sharding`` / ``ct_sharding``), bit-identical
+to the single device.
 """
 
 from __future__ import annotations
@@ -21,10 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hectr_tpu_torch.ckks import scheme as S
 from hectr_tpu_torch.ckks.context import CKKSContext
-from hectr_tpu_torch.ckks.gemv import gemv_materials, gemv_apply
 from hectr_tpu_torch.ckks.scheme import KeySet, Sampler
+from hectr_tpu_torch.ckks.scheme_ops import SchemeOps
 from hectr_tpu_torch.control.mpc import mpc_gains, mpc_hessian
 from hectr_tpu_torch.control.simulate import LinearModel, Plant
 from hectr_tpu_torch.control.stages import weighting_matrices
@@ -58,10 +63,18 @@ def hempc_init_state(sampler: Sampler, device, batch: tuple[int, ...] = ()):
     return (sampler, torch.zeros(batch, dtype=torch.float64, device=device))
 
 
+def _zero_extend(v: torch.Tensor, zeros: torch.Tensor):
+    """d2z_vector parity (src/matrices.c:124-131): the real vector
+    zero-extended into the slot space, as an (re, im) pair."""
+    lead = v.shape[:-1]
+    zre = torch.cat([v, zeros[v.shape[-1]:].expand(*lead, -1)], dim=-1)
+    return zre, zeros.expand(*lead, -1)
+
+
 def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
                          model: LinearModel, plant: Plant, horizon: int,
                          bounds=None, relin_key=None, qp_iters: int = 2,
-                         qp_degree: int = 7, qp_input_bound=3.0):
+                         qp_degree: int = 7, qp_input_bound=3.0, ops=None):
     """Build the encrypted regulator closure; its state is
     (sampler, canary) from `hempc_init_state`: fresh encryption
     randomness every step.  The closure maps xhat [..., nx], uhat
@@ -72,7 +85,13 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
     fixed-iteration projected gradient (hempc.qp_enc) -- beyond the
     reference, whose encrypted path is unconstrained only
     (src/hempc.c:216-266).  Bounds without dumin run the unconstrained
-    law."""
+    law.
+
+    `ops` is the op set the step runs on: ``SchemeOps(ctx)``, the single
+    device, when None; a ``LimbOps`` over the context and a mesh shards
+    the keys, gemv materials and ciphertexts by row, and its counters and
+    trace are the caller's to read.  The encrypted QP runs on the single
+    device only."""
     ny, nx = np.shape(model.C)
     nu = np.shape(model.B)[1]
     if ctx.slots < nu * horizon:
@@ -80,8 +99,14 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
     K_A, K_B = regulator_gains(model, plant, horizon)
     device = keys.sk.device
     k_top = ctx.max_limbs
+    ops = SchemeOps(ctx) if ops is None else ops
     qp_solve = None
     if bounds is not None and bounds.dumin is not None:
+        if not isinstance(ops, SchemeOps):
+            raise ValueError("the encrypted QP (hempc.qp_enc) does not run on "
+                             "a limb mesh: a regulator with du bounds takes "
+                             "the single-device op set (a limb-sharded QP is "
+                             "not ported)")
         if relin_key is None:
             raise ValueError("the encrypted QP needs a relinearisation key")
         Q, R = weighting_matrices(plant.xs, plant.us)
@@ -99,17 +124,14 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
         K_B = gain_scale[:, None] * K_B
     # d2z_matrix zero-embedding into the slots x slots layout
     # (src/hempc.c:187,195); diagonal plaintexts and keys built once
-    mat_A = gemv_materials(ctx, K_A, k_top, rot_keys, device)
-    mat_B = gemv_materials(ctx, K_B, k_top, rot_keys, device)
+    held_keys = ops.shard_keyset(keys)
+    mat_A = ops.gemv_materials(K_A, k_top, rot_keys, device)
+    mat_B = ops.gemv_materials(K_B, k_top, rot_keys, device)
     zeros = torch.zeros(ctx.slots, dtype=torch.float64, device=device)
 
     def enc_vec(v, sampler):
-        # d2z_vector parity (src/matrices.c:124-131): zero-extend the
-        # real vector into the slot space
-        lead = v.shape[:-1]
-        zre = torch.cat([v, zeros[v.shape[-1]:].expand(*lead, -1)], dim=-1)
-        return S.encrypt(ctx, keys, S.encode(
-            ctx, (zre, zeros.expand(*lead, -1)), k_top), sampler)
+        return ops.encrypt(held_keys, ops.encode(_zero_extend(v, zeros),
+                                                 k_top), sampler)
 
     def regulator(state, xhat, uhat, xr, ur):
         sampler, canary = state
@@ -123,16 +145,16 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
         ct_xr = enc_vec(xr, sampler)
         ct_ur = enc_vec(ur, sampler)
         # --- encrypted regulator (server side) -----------------------
-        xdiff = S.sub(ctx, ct_xhat, ct_xr)
-        udiff = S.sub(ctx, ct_uhat, ct_ur)
-        gA = gemv_apply(ctx, mat_A, xdiff)
-        gB = gemv_apply(ctx, mat_B, udiff)
-        du = S.neg(ctx, S.add(ctx, gA, gB))
+        xdiff = ops.sub(ct_xhat, ct_xr)
+        udiff = ops.sub(ct_uhat, ct_ur)
+        gA = ops.gemv_apply(mat_A, xdiff)
+        gB = ops.gemv_apply(mat_B, udiff)
+        du = ops.neg(ops.add(gA, gB))
         if qp_solve is not None:
             du = qp_solve(du)                 # encrypted box projection
-        ct_u = S.add(ctx, S.mod_down_to(ctx, ct_uhat, du.limbs), du)
+        ct_u = ops.add(ops.mod_down_to(ct_uhat, du.limbs), du)
         # --- back across the trust boundary --------------------------
-        re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, ct_u))
+        re, im = ops.decode_ri(ops.decrypt(held_keys, ct_u))
         # imaginary-residue noise canary (src/ctr.c:493-494 parity)
         canary = torch.maximum(canary, torch.abs(im).amax(-1))
         return re[..., :nu], (sampler, canary)

@@ -1,15 +1,16 @@
 """Multi-process scale-out: ``torch.distributed`` initialisation, the
-mesh over its ranks, and the NTT scaling-efficiency harness, as
+pod mesh over its ranks, and the NTT scaling-efficiency harness, as
 ``hectr_tpu/parallel/multihost.py``.
 
 One process per device (or per host): every process sets
 HECTR_COORDINATOR (``host:port`` of rank 0), HECTR_NUM_PROCS and
 HECTR_PROC_ID, calls ``init_distributed()``, builds the mesh with
-``make_pod_mesh()`` and runs the same per-shard functions
-(``parallel.ntt_shard`` / ``coeff_ops``) a local mesh runs.  The harness
-measures whatever mesh it is given; on a local mesh (all shards on one
-device) its number says what sharding costs there, not what a link
-would carry.
+``make_pod_mesh(batch, limb, coeff)`` and runs the same per-shard
+functions a local mesh runs (``parallel.ntt_shard`` / ``coeff_ops`` on
+its coefficient subgroup, ``parallel.limb_ops`` on its limb subgroup).
+The harness measures whatever mesh it is given; on a local mesh (all
+shards on one device) its number says what sharding costs there, not
+what a link would carry.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from hectr_tpu_torch.ckks.ntt import ntt, ntt_tables
 from hectr_tpu_torch.ckks.primes import find_ntt_primes
 from hectr_tpu_torch.config import resolve_device
 from hectr_tpu_torch.ops.ntt_cuda import MAX_LOGN
-from hectr_tpu_torch.parallel import ProcessMesh
+from hectr_tpu_torch.parallel import Mesh, ProcessLimbMesh, ProcessMesh
 from hectr_tpu_torch.parallel.ntt_shard import (
     local_ntt_fns,
     ppermute_bytes_per_transform,
@@ -71,12 +72,50 @@ def init_distributed(coordinator: str | None = None,
     return True
 
 
-def make_pod_mesh() -> ProcessMesh:
-    """The coefficient mesh over every rank of the initialised default
-    group (every host's, after ``init_distributed``); their number must
-    be a power of two.  The JAX package's ``batch`` and ``limb``
-    arguments come with those axes, which are not ported yet."""
-    return ProcessMesh()
+def make_pod_mesh(batch: int = 1, limb: int = 1,
+                  coeff: int | None = None, device="cuda") -> Mesh:
+    """A batch x limb x coeff mesh over every rank of the initialised
+    default group (every host's, after ``init_distributed``), ranks in
+    the order batch > limb > coeff: rank = (b * limb + l) * coeff + c, as
+    the JAX package orders its devices.  `coeff` None takes what the
+    world leaves; it must be a power of two, `batch` and `limb` need not
+    be.  Every rank creates every subgroup, in the same order.  The
+    result holds this rank's batch index, its ``ProcessLimbMesh`` (the
+    `limb` ranks that share its b and c) and its ``ProcessMesh`` (the
+    `coeff` ranks that share its b and l).  `device`: where this rank's
+    tensors lie ("cuda": its current card, the one ``init_distributed``
+    gave it under NCCL); placing a tensor from elsewhere raises."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if batch < 1 or limb < 1:
+        raise ValueError(f"batch {batch} and limb {limb} must be positive")
+    if coeff is None:
+        if world % (batch * limb):
+            raise ValueError(f"{world} ranks do not split into batch {batch} "
+                             f"x limb {limb}")
+        coeff = world // (batch * limb)
+    if batch * limb * coeff != world:
+        raise ValueError(f"a pod mesh of {batch} x {limb} x {coeff} over "
+                         f"{world} ranks")
+    b, rest = divmod(rank, limb * coeff)
+    l, c = divmod(rest, coeff)
+
+    def rank_of(bi, li, ci):
+        return (bi * limb + li) * coeff + ci
+
+    limb_group = coeff_group = None
+    for bi in range(batch):
+        for ci in range(coeff):
+            g = dist.new_group([rank_of(bi, li, ci) for li in range(limb)])
+            if (bi, ci) == (b, c):
+                limb_group = g
+    for bi in range(batch):
+        for li in range(limb):
+            g = dist.new_group([rank_of(bi, li, ci) for ci in range(coeff)])
+            if (bi, li) == (b, l):
+                coeff_group = g
+    return Mesh(shape={"batch": batch, "limb": limb, "coeff": coeff},
+                limb=ProcessLimbMesh(limb_group), device=resolve_device(device),
+                batch_index=b, coeff=ProcessMesh(coeff_group))
 
 
 def ntt_scaling_efficiency(logn: int, limbs: int, mesh, device,

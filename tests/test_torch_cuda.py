@@ -625,3 +625,90 @@ def test_batched_matvec_on_cuda_is_one_product_near_each_row(cuda_device):
     assert got.shape == (64, 5)
     for i in range(64):
         assert float((got[i] - M @ x[i]).abs().max()) <= 1e-12
+
+
+# ---- the limb axis on the card ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def flagship_card():
+    """FLAGSHIP keys (6 BSGS rotation keys) and a ciphertext on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    device = torch.device("cuda", torch.cuda.current_device())
+    ctx = make_context(cfg.FLAGSHIP)
+    keys = S.keygen(ctx, S.TorchSampler(0, device), device)
+    rk = K.gen_rotation_keys(ctx, keys, S.TorchSampler(1, device),
+                             rotations=G.bsgs_rotations(ctx.slots))
+    v = torch.linspace(-1, 1, ctx.slots, dtype=torch.float64, device=device)
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (v, torch.zeros_like(v)),
+                                       ctx.max_limbs),
+                   S.TorchSampler(2, device))
+    return ctx, keys, rk, v, ct, device
+
+
+@pytest.mark.parametrize("size", [2, 3])
+def test_limb_ops_on_cuda_bit_equal_single_device(flagship_card, size):
+    """LimbOps at FLAGSHIP (22 + 2 rows) on a local limb mesh on the card:
+    rescale_pair, the digit decomposition, key_switch, rotate and the
+    BSGS gemv bit-equal to the single-device ops there; decrypted and
+    decoded to 1e-6."""
+    from hectr_tpu_torch.parallel import make_mesh
+    from hectr_tpu_torch.parallel.limb_ops import LimbOps
+
+    ctx, keys, rk, v, ct, device = flagship_card
+    k = ctx.max_limbs
+    ops = LimbOps(ctx, make_mesh(limb=size, device=device))
+    lct = ops.shard_ct(ct)
+    pt2 = S.encode(ctx, (torch.full_like(v, 2.0), torch.zeros_like(v)), k,
+                   scale=ctx.pair_scale(k))
+    prod = S.mul_pt(ctx, ct, pt2)
+    got = ops.rescale_pair(ops.shard_ct(prod))
+    assert torch.equal(ops.gather_ct(got).data, S.rescale_pair(ctx, prod).data)
+    digits = ops.decompose(ops.shard_data(ct.data[1]), k)
+    want = K.decompose_digits(ctx, ct.data[1])
+    for s, part in zip(ops.held, digits):
+        rows = torch.cat([torch.arange(*ops.rows.data_rows(s, k)),
+                          k + torch.arange(*ops.rows.special_rows(s))])
+        assert torch.equal(part, want.index_select(-2, rows.to(device)))
+    keys_l = ops.shard_keys(rk)
+    ks = ops.key_switch(ops.shard_data(ct.data[1]), keys_l[1], k)
+    assert torch.equal(torch.cat(ks, dim=-2),
+                       K.key_switch(ctx, ct.data[1], rk[1]))
+    rot = ops.rotate(lct, 1, keys_l)
+    assert torch.equal(ops.gather_ct(rot).data, K.rotate(ctx, ct, 1, rk).data)
+    M = np.random.default_rng(3).normal(size=(16, 16)) / 4
+    mat = ops.gemv_materials(M, k, rk, device, "bsgs")
+    gv = ops.gemv_apply(mat, lct)
+    want_gv = G.gemv_apply(ctx, G.gemv_materials(ctx, M, k, rk, device, "bsgs"),
+                           ct)
+    assert torch.equal(ops.gather_ct(gv).data, want_gv.data)
+    lk = ops.shard_keyset(keys)
+    dec = ops.decode(ops.decrypt(lk, gv)).cpu().numpy()
+    assert np.max(np.abs(dec.real - M @ v.cpu().numpy())) < 1e-6
+    assert set(ops.gathered) == {"rescale row", "digit stack",
+                                 "special rows", "decode digits"}
+
+
+def test_limb_regulator_on_cuda_equals_unsharded(flagship_card):
+    """Two closed-loop steps over two loops with the FLAGSHIP regulator on
+    LocalLimbMesh(2) on the card: x and u exactly the unsharded batched
+    regulator's on the same draws."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.control.simulate import simulate_batch
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.parallel import make_mesh
+    from hectr_tpu_torch.parallel.limb_ops import LimbOps
+
+    ctx, keys, rk, _, _, device = flagship_card
+    model, plant = cli.cstr_setup()
+    p = np.stack([cli.disturbance(2) + 0.01 * b for b in range(2)])
+    out = []
+    for ops in (LimbOps(ctx, make_mesh(limb=2, device=device)), None):
+        reg = make_hempc_regulator(ctx, keys, rk, model, plant, 4, ops=ops)
+        out.append(simulate_batch(
+            model, plant, p, 1.0, 2, device, reg,
+            hempc_init_state(S.TorchSampler(9, device), device, (2,)), 4))
+    (x, u, (_, c)), (x1, u1, (_, c1)) = out
+    assert np.array_equal(x, x1) and np.array_equal(u, u1)
+    assert torch.equal(c, c1) and bool((c < 1e-5).all())

@@ -142,6 +142,7 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hectr_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'hectr_tpu_torch.parallel.limb_ops' in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

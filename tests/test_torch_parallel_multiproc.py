@@ -1,8 +1,10 @@
-"""The process mesh run for real on the CPU (2 and 4 gloo ranks through
-``hectr_tpu_torch.bench.run_multiproc``: each rank asserts its own shard
-bit-equal to the single-device port, which the other test files hold
-bit-equal to the JAX package), ``init_distributed`` and ``make_pod_mesh``,
-the ``scaling`` subcommand and the entry points.
+"""The process meshes run for real on the CPU (2 and 4 gloo ranks on the
+coefficient axis, limb meshes of 2 and 3 ranks and pod meshes of 2 x 2 x
+1 and 1 x 2 x 2 through ``hectr_tpu_torch.bench.run_multiproc``: each
+rank asserts its own shard bit-equal to the single-device port, which
+the other test files hold bit-equal to the JAX package),
+``init_distributed`` and ``make_pod_mesh``, the ``scaling`` subcommand
+and the entry points.
 
 Every group takes a free port from the OS and every launch has a time
 limit of its own, after which its ranks are killed.
@@ -23,7 +25,7 @@ from hectr_tpu_torch.bench import run_multiproc
 from hectr_tpu_torch.ckks import ntt as TN
 from hectr_tpu_torch.ckks.primes import find_ntt_primes
 from hectr_tpu_torch.config import CKKSPreset
-from hectr_tpu_torch.parallel import ProcessMesh
+from hectr_tpu_torch.parallel import ProcessLimbMesh, ProcessMesh
 from hectr_tpu_torch.parallel import multihost
 from hectr_tpu_torch.parallel.ntt_shard import (
     local_ntt_fns,
@@ -49,6 +51,50 @@ def test_process_mesh_bit_equal_on_every_rank(ranks):
     assert rec["mesh"] == f"process mesh, gloo, {ranks} ranks, rank 0 on cpu"
     assert rec["exchange_bytes"] == 4 * (1024 // ranks) * 4     # int32 wire
     assert len(rec["exchange_gb_per_s"]) == ranks
+
+
+@pytest.mark.parametrize("ranks,batch,limb", [
+    (2, 1, 2),      # a limb mesh over 2 ranks
+    (3, 1, 3),      # 3 ranks: uneven rows, a world that is no power of two
+    (4, 2, 2),      # make_pod_mesh(2, 2, 1): the batch x limb step
+    (4, 1, 2),      # make_pod_mesh(1, 2, 2): limb and coefficient subgroups
+])
+def test_pod_mesh_bit_equal_on_every_rank(ranks, batch, limb):
+    """One closed-loop step of the REFERENCE_HEMPC regulator on each
+    rank's limb subgroup, x_next, u and every ciphertext bit-equal on its
+    rows to the unsharded step (``entry.limb_step``); with a coefficient
+    axis of 2, the sharded NTT and scheme ops on each coefficient
+    subgroup too."""
+    rec = run_multiproc.launch(ranks, "cpu", 10, 4, "reference-hempc", 240.0,
+                               batch=batch, limb=limb)
+    assert rec["ok"] and rec["bitexact_per_shard"] and rec["ranks"] == ranks
+    coeff = ranks // (batch * limb)
+    assert rec["pod"].startswith(
+        f"{{'batch': {batch}, 'limb': {limb}, 'coeff': {coeff}}}: process "
+        f"limb mesh, gloo, {limb} ranks, rank 0 on cpu")
+    steps = rec["limb_steps"]
+    assert len(steps) == ranks
+    assert all(s["checked"] == 17 and s["loops"] == 2 for s in steps)
+    assert {s["limb_mesh"] for s in steps} == {
+        f"process limb mesh, gloo, {limb} ranks, rank {r} on cpu"
+        for r in range(limb)}
+    # the shards of one key add up to the whole (6 BSGS keys, 4 + 1 rows)
+    key = 4 * 4 * 5 * 4096 * 8
+    assert sum(s["key_block_bytes"] for s in steps) == 6 * key * batch * coeff
+    # device memory is read on a card only
+    assert all(s[f] is None for s in steps
+               for f in ("held_bytes", "step_peak_bytes", "check_peak_bytes"))
+    # every rank of a batch group computed the same loops
+    for g in range(batch):
+        group = [s["x_next"] for s in steps[g * limb * coeff:
+                                            (g + 1) * limb * coeff]]
+        assert all(x == group[0] for x in group)
+    if batch > 1:
+        assert steps[0]["x_next"] != steps[-1]["x_next"]
+    assert ("mesh" in rec) == (coeff > 1)
+    with pytest.raises(ValueError, match="do not split"):
+        run_multiproc.launch(3, "cpu", 10, 4, "reference-hempc", 60.0,
+                             batch=2, limb=1)
 
 
 def test_a_failing_rank_fails_the_run():
@@ -101,9 +147,15 @@ def test_single_rank_group_in_process(monkeypatch):
         assert multihost.init_distributed(device=CPU) is True
         assert multihost.init_distributed(device=CPU) is True   # twice: no error
         assert dist.get_backend() == "gloo"
-        mesh = multihost.make_pod_mesh()
+        pod = multihost.make_pod_mesh(device=CPU)
+        assert dict(pod.shape) == {"batch": 1, "limb": 1, "coeff": 1}
+        assert pod.batch_index == 0 and pod.device == CPU
+        assert isinstance(pod.limb, ProcessLimbMesh) and pod.limb.size == 1
+        mesh = pod.coeff
         assert isinstance(mesh, ProcessMesh)
         assert (mesh.size, mesh.rank, mesh.shards) == (1, 0, (0,))
+        with pytest.raises(ValueError):
+            multihost.make_pod_mesh(batch=2, device=CPU)
         assert mesh.describe(CPU) == "process mesh, gloo, 1 ranks, rank 0 on cpu"
         n = 1 << 8
         primes = tuple(find_ntt_primes(30, 3, 2 * n))
