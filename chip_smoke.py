@@ -29,7 +29,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      and BSGS keys, du box, degree-7 2-iteration PGD, 10 steps): the
      plaintext mirror's eta, envelope and certificate equal the JAX
      run's; <= 1e-4 per channel against the mirror, box honored to 1e-4
-     and active, canary < 1e-5
+     and active, canary < 1e-5.  Then the same regulator over 4 loops
+     (simulate_batch, loop b under (1, 0.75, 0.5, 0.25)[b] x the
+     disturbance, inside the same envelope): each loop <= 1e-4 from the
+     batched mirror, every box honored, loop 0 active, every canary
+     < 1e-5; rows 0 and 3 of a step against the 1-D regulator; K1/K2
+     bit-equal to plain at every batched shape the loops launched
   8. "he": the reference's he_* call sequence at its exact parameters
      (hectx_init(12, 109, 16, 50), 15 rotation keys, 4 encryptions, 2
      gemvs): the control law to 1e-8, canary < 1e-5, the realized
@@ -81,8 +86,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      8192 complex slots to 1e-6; rotations by 1 and 7; a 5-level ct x ct
      chain (compact relinearisation key, 12 -> 2 limbs) to 1e-6 per
      level; a dense 8192 x 8192 BSGS gemv (180 compact keys) to 1e-4 of
-     M v, with its key and plaintext-grid bytes, peak device memory and
-     times
+     M v, with its key and plaintext-grid bytes, the device memory held
+     before and the peak in each of its phases (keys, grid, gemv) and
+     times (hectr_tpu_torch.bench.suite.dense_gemv)
+     "suite": the bench entry point (hectr_tpu_torch.bench.suite) through
+     its main() for ntt_logn15, kernel_parity and compact_key_tradeoff:
+     its JSON line names the three, each passed its gate
  10. each kernel launched on every path that uses it (K1/K2 in phases
      3, 4, 6-9, "parallel", "batch" and "limb", with their launches by
      shape; K3 in phase
@@ -1024,45 +1033,30 @@ def phase_limb(device, flagship, card):
 def phase_qp(device, card):
     """The constrained encrypted loop at FLAGSHIP_QP, set up as
     scripts/run_flagship_qp_tpu.py sets it up, against its plaintext
-    mirror and the JAX run's recorded mirror numbers."""
+    mirror and the JAX run's recorded mirror numbers; then the same
+    regulator over 4 loops at once (simulate_batch), each under a share
+    of the recorded disturbance, against the batched mirror."""
     from hectr_tpu_torch import cli
-    from hectr_tpu_torch.ckks import scheme as S
+    from hectr_tpu_torch.bench import batch as BB
+    from hectr_tpu_torch.ckks import ntt as T
     from hectr_tpu_torch.ckks.context import make_context
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
-    from hectr_tpu_torch.ckks.keyswitch import gen_relin_key, gen_rotation_keys
     from hectr_tpu_torch.config import FLAGSHIP_QP
-    from hectr_tpu_torch.control.mpc import MPCBounds, mpc_hessian
-    from hectr_tpu_torch.control.simulate import simulate
+    from hectr_tpu_torch.control.mpc import mpc_hessian
     from hectr_tpu_torch.control.stages import weighting_matrices
-    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
-    from hectr_tpu_torch.hempc.qp_enc import (make_pgd_mirror_regulator,
-                                              pgd_eta, pgd_limbs_required)
+    from hectr_tpu_torch.hempc.qp_enc import pgd_eta, pgd_limbs_required
+    from hectr_tpu_torch.ops import ntt_cuda
 
     want = json.loads(QP_SUMMARY.read_text())
-    bounds = MPCBounds(dumin=np.array([-0.25, -0.004]),
-                       dumax=np.array([0.25, 0.004]))
-    iters, degree, horizon, steps = 2, 7, 4, 10
+    bounds = BB.qp_bounds()
+    iters, degree, horizon, steps = BB.QP_ITERS, BB.QP_DEGREE, 4, BB.QP_STEPS
     model, plant = cli.cstr_setup()
-    p_seq = np.zeros((steps, 1))
-    p_seq[2:, 0] = 0.1 * plant.ps[0]          # +10% inlet flow from k=2
+    p_seq = BB.qp_disturbance(plant)          # +10% inlet flow from k=2
 
     # the plaintext mirror on the host; the envelope B0 is widened until
     # the trajectory's input certificate fits under it
-    cpu = torch.device("cpu")
-    B0 = 4.0
-    for _ in range(3):
-        mirror = make_pgd_mirror_regulator(model, plant, horizon, bounds, cpu,
-                                           iters=iters, degree=degree,
-                                           input_bound=B0)
-        x_m, u_m, cert = simulate(
-            model, plant, p_seq, 1.0, steps, cpu, regulator=mirror,
-            horizon=horizon,
-            regulator_state=torch.zeros((), dtype=torch.float64),
-            return_state=True)
-        cert = float(cert)
-        if cert <= B0:
-            break
-        B0 = float(np.ceil(cert) + 1.0)
+    B0, cert, x_m, u_m = BB.qp_envelope(model, plant, p_seq)
+    cert = float(cert)
     ny, nx = np.shape(model.C)
     nu = np.shape(model.B)[1]
     Q, R = weighting_matrices(plant.xs, plant.us)
@@ -1092,56 +1086,83 @@ def phase_qp(device, card):
           and ctx.max_limbs - 2 - need == len(ctx.base_primes),
           f"depth ledger: {need} limbs below k_in = {ctx.max_limbs - 2}")
     t0 = time.perf_counter()
-    keys = S.keygen(ctx, S.TorchSampler(51, device), device)
-    relin = gen_relin_key(ctx, keys, S.TorchSampler(52, device), compact=True)
-    rot_keys = gen_rotation_keys(ctx, keys, S.TorchSampler(53, device),
-                                 rotations=bsgs_rotations(ctx.slots),
-                                 compact=True)
-    reg = make_hempc_regulator(ctx, keys, rot_keys, model, plant, horizon,
-                               bounds=bounds, relin_key=relin,
-                               qp_iters=iters, qp_degree=degree,
-                               qp_input_bound=B0)
+    reg = BB.qp_regulator(device, model, plant, B0)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
-    step_s = []
+    total = {"ntt": 0, "intt": 0}
 
-    def timed(state, *args):
-        t = time.perf_counter()
-        out = reg(state, *args)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        return out
+    def tally():
+        for k in total:
+            total[k] += ntt_cuda.LAUNCHES[k]
+
+    def held_to_mirror(label, x, u, canary, x_m, u_m):
+        dev = np.stack([deviations(x[b], u[b], x_m[b], u_m[b])
+                        for b in range(x.shape[0])])
+        box_ok = BB.qp_box_ok(u)
+        active = BB.qp_activity(u[0])
+        print(f"[flagship-qp] {label}: max |encrypted - mirror| per channel "
+              f"(c, T, h, Tc, F) = {dev.max(axis=0).tolist()}; box honored "
+              f"{box_ok}, activity of loop 0 {active:.4f}; canaries "
+              f"{canary.tolist()}", flush=True)
+        check(bool((dev < 1e-4).all()), f"flagship-qp {label} deviation {dev}")
+        check(box_ok, f"flagship-qp {label}: du outside the box")
+        check(active > 0.8, f"flagship-qp {label}: box not active ({active})")
+        check(bool((canary < 1e-5).all()), f"flagship-qp {label} canary "
+              f"{canary}")
 
     reset_launches()
-    x, u, (_, canary) = simulate(
-        model, plant, p_seq, 1.0, steps, device, regulator=timed,
-        regulator_state=hempc_init_state(S.TorchSampler(54, device), device),
-        horizon=horizon, return_state=True)
-    torch.cuda.synchronize()
-    launches = read_launches()
+    x, u, canary, step_s = BB.qp_closed_loop(reg, model, plant, p_seq, device)
+    tally()
     print_launch_shapes("flagship-qp", steps, "step")
-    canary = float(canary)
     check(x.shape == (steps + 1, 3) and u.shape == (steps, 2)
           and bool(np.isfinite(x).all() and np.isfinite(u).all()),
           "flagship-qp: shapes or non-finite trajectory")
-    dev = deviations(x, u, x_m, u_m)
-    du = np.diff(u, axis=0)
-    box_ok = bool(np.all(du <= bounds.dumax + 1e-4)
-                  and np.all(du >= bounds.dumin - 1e-4))
-    active = float(np.max(np.abs(du[:, 0])) / bounds.dumax[0])
-    print(f"[flagship-qp] keygen + compact relin + {len(rot_keys)} "
-          f"compact BSGS keys + regulator build {t_setup:.2f} s; median "
-          f"regulator step {np.median(step_s) * 1e3:.1f} ms over {steps} "
-          f"steps on {card}", flush=True)
-    print(f"[flagship-qp] max |encrypted - mirror| per channel (c, T, h, Tc, "
-          f"F) = {dev.tolist()}; box honored {box_ok}, activity {active:.4f}; "
-          f"canary {canary:.3e}; launches {launches}", flush=True)
-    check(bool((dev < 1e-4).all()), f"flagship-qp deviation {dev}")
-    check(box_ok, "flagship-qp: du outside the box")
-    check(active > 0.8, f"flagship-qp: box not active ({active})")
-    check(canary < 1e-5, f"flagship-qp canary {canary}")
-    return launches
+    print(f"[flagship-qp] keygen + compact relin + "
+          f"{len(bsgs_rotations(ctx.slots))} compact BSGS keys + regulator "
+          f"build {t_setup:.2f} s; median regulator step "
+          f"{np.median(step_s) * 1e3:.1f} ms over {steps} steps on {card}; "
+          f"launches {dict(total)}", flush=True)
+    held_to_mirror("one loop", x[None], u[None], canary[None], x_m[None],
+                   u_m[None])
+
+    # 4 loops through the same regulator, loop b under (1, 0.75, 0.5,
+    # 0.25)[b] x the disturbance: none larger, so B0 covers every loop
+    scales = (1.0, 0.75, 0.5, 0.25)
+    p4 = np.stack([BB.qp_disturbance(plant, steps, s) for s in scales])
+    B0_4, cert4, x_m4, u_m4 = BB.qp_envelope(model, plant, p4)
+    check(B0_4 == B0 and bool((cert4 <= B0).all()),
+          f"4 loops: certificates {cert4} outside the envelope {B0}")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    x, u, canary, step_s = BB.qp_closed_loop(reg, model, plant, p4, device)
+    tally()
+    shapes = sorted({shape for _, shape in ntt_cuda.LAUNCH_SHAPES})
+    print_launch_shapes("flagship-qp B=4", steps, "batched step")
+    check(x.shape == (4, steps + 1, 3) and u.shape == (4, steps, 2)
+          and bool(np.isfinite(x).all() and np.isfinite(u).all()),
+          "flagship-qp B=4: shapes or non-finite trajectories")
+    print(f"[flagship-qp] 4 loops x {steps} steps: median batched step "
+          f"{np.median(step_s) * 1e3:.1f} ms = "
+          f"{4 / np.median(step_s):.2f} loop-steps/s; certificates "
+          f"{cert4.tolist()} under B0 {B0}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(device)} B on {card}", flush=True)
+    held_to_mirror("4 loops", x, u, canary, x_m4, u_m4)
+    rows_equal_1d("flagship-qp B=4", reg, 4, 1, device)
+
+    # K1/K2 against plain at every batched shape the 4 loops launched
+    gen = torch.Generator(device=device)
+    gen.manual_seed(85)
+    for shape in shapes:
+        n, rows = shape[-1], shape[-2]
+        t = T.ntt_tables(n, ctx.full_primes[:rows], device)
+        a = random_residues(t.primes, shape[:-2], n, gen, device)
+        check(torch.equal(T.ntt(a, t), T.ntt_plain(a, t))
+              and torch.equal(T.intt(a, t), T.intt_plain(a, t)),
+              f"flagship-qp: K1/K2 != plain at {list(shape)}")
+    print(f"[flagship-qp] K1/K2 bit-equal to plain at the 4 loops' "
+          f"{len(shapes)} launch shapes", flush=True)
+    return total
 
 
 def facade_problem():
@@ -1233,11 +1254,10 @@ def phase_medium(device, card):
     """MEDIUM at full width: FFT embedding on the card, encrypt/decrypt,
     rotations, a 5-level ct x ct chain and a dense BSGS gemv over all
     slots."""
+    from hectr_tpu_torch.bench.suite import dense_gemv
     from hectr_tpu_torch.ckks import scheme as S
     from hectr_tpu_torch.ckks.context import make_context
     from hectr_tpu_torch.ckks.encoding import embed_ri, unembed
-    from hectr_tpu_torch.ckks.gemv import (bsgs_rotations, gemv_apply,
-                                           gemv_materials)
     from hectr_tpu_torch.ckks.keyswitch import (gen_relin_key,
                                                 gen_rotation_keys, mul_ct,
                                                 rotate)
@@ -1332,50 +1352,64 @@ def phase_medium(device, card):
     check(len(chain_err) == (k - 2) // 2 and max(chain_err) <= 1e-6,
           f"medium ct x ct chain {chain_err}")
 
-    # 5. dense BSGS gemv over every slot
+    # 5. dense BSGS gemv over every slot, the peak of each phase
     M = np.random.default_rng(9).normal(size=(s, s)) / np.sqrt(s)
     vg = rng.uniform(-2, 2, s)
-    sync()
-    t0 = time.perf_counter()
-    rk = gen_rotation_keys(ctx, keys, S.TorchSampler(65, device),
-                           rotations=bsgs_rotations(s), compact=True)
-    sync()
-    t_keys = time.perf_counter() - t0
-    key_bytes = sum(x.numel() * x.element_size() for x in rk.values())
-    t0 = time.perf_counter()
-    mat = gemv_materials(ctx, M, k, rk, device, method="bsgs")
-    sync()
-    t_mat = time.perf_counter() - t0
-    b = mat["bsgs"]
-    grid = [g["pt"] for g in b["giant"]]
-    if "pt0" in b:
-        grid.append(b["pt0"])
-    grid_bytes = sum(x.numel() * x.element_size() for x in grid)
-    ct = S.encrypt(ctx, keys, S.encode(ctx, on(vg + 0j), k), enc)
-    gemv_ms = []
-    for _ in range(3):
-        sync()
-        t0 = time.perf_counter()
-        out = gemv_apply(ctx, mat, ct)
-        sync()
-        gemv_ms.append((time.perf_counter() - t0) * 1e3)
-    got = decoded(out)
+    g = dense_gemv(ctx, keys, M, vg, device, True, 3,
+                   S.TorchSampler(65, device), enc)
     launches = read_launches()
     print_launch_shapes("medium", 1, "phase (keygen, chain, 3 gemvs)")
-    e_gemv = float(np.abs(got.real - M @ vg).max())
-    c_gemv = float(np.abs(got.imag).max())
-    peak = torch.cuda.max_memory_allocated(device)
-    print(f"[medium] dense {s} x {s} BSGS gemv at k={k}: {len(rk)} compact "
-          f"keys ({key_bytes} B on the card) in {t_keys:.2f} s; materials "
-          f"({len(grid)} x {b['n1']} diagonal plaintexts, {grid_bytes} B) in "
-          f"{t_mat:.2f} s; median gemv {np.median(gemv_ms):.1f} ms over 3 "
-          f"calls ({[round(x, 1) for x in gemv_ms]}); max |dec - M v| "
-          f"{e_gemv:.3e}, max |imag| {c_gemv:.3e}; peak device memory "
-          f"{peak} B on {card}; launches {launches}", flush=True)
-    check(e_gemv <= 1e-4 and c_gemv < 1e-3, f"medium gemv {e_gemv}, {c_gemv}")
-    del mat, b, grid, rk, keys
+    print(f"[medium] dense {s} x {s} BSGS gemv at k={k}: {g['n_keys']} "
+          f"compact keys ({g['key_bytes']} B on the card) in "
+          f"{g['keys_s']:.2f} s; materials ({g['grid_plaintexts'][0]} x {g['grid_plaintexts'][1]} "
+          f"diagonal plaintexts, {g['grid_bytes']} B) in {g['grid_s']:.2f} s; "
+          f"median gemv {g['median_gemv_ms']:.1f} ms over 3 calls "
+          f"({[round(x, 1) for x in g['gemv_ms']]}); max |dec - M v| "
+          f"{g['max_err']:.3e}, max |imag| {g['max_imag']:.3e}; launches "
+          f"{launches}", flush=True)
+    print(f"[medium] device memory held before / peak in each phase: keys "
+          f"{g['keys_held_bytes']} / {g['keys_peak_bytes']} B, grid "
+          f"{g['grid_held_bytes']} / {g['grid_peak_bytes']} B, gemv "
+          f"{g['gemv_held_bytes']} / {g['gemv_peak_bytes']} B on {card}",
+          flush=True)
+    check(g["max_err"] <= 1e-4 and g["max_imag"] < 1e-3,
+          f"medium gemv {g['max_err']}, {g['max_imag']}")
+    del keys
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_suite(device, card):
+    """Three sections of the bench entry point through its main(): the
+    JSON line it ends with names them, each with its value, unit, gate
+    and result."""
+    import contextlib
+    import io
+
+    from hectr_tpu_torch.bench import suite
+
+    names = ("ntt_logn15", "kernel_parity", "compact_key_tradeoff")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rec = suite.main(["--sections", ",".join(names)])
+    finally:
+        *lines, last = buf.getvalue().splitlines() or [""]
+        for line in lines:
+            print(line, flush=True)
+        print(f"[suite] JSON line: {last}", flush=True)
+    got = json.loads(last)
+    check(got == json.loads(json.dumps(rec)), "suite: JSON line != main()")
+    check(got["card"] == card and list(got["sections"]) == list(names),
+          f"suite: sections {list(got['sections'])} on {got['card']}")
+    for name, r in got["sections"].items():
+        check(r["ok"] is True and all(key in r for key in
+                                      ("value", "unit", "gate", "seconds")),
+              f"suite: section {name}: {r}")
+        check(np.isfinite(r["value"]) and r["value"] > 0,
+              f"suite: section {name} value {r['value']}")
+    check(got["sections"]["compact_key_tradeoff"]["products_bit_equal"],
+          "suite: stored and compact products differ")
 
 
 def main() -> None:
@@ -1457,6 +1491,8 @@ def main() -> None:
         launches_he = phase_he(device, card)
     with timer.section("medium"):
         launches_medium = phase_medium(device, card)
+    with timer.section("suite"):
+        phase_suite(device, card)
 
     loops = (("reference-hempc", launches_ref), ("flagship", launches_flag),
              ("fused", launches_fused), ("parallel", launches_par),

@@ -30,8 +30,9 @@ from hectr_tpu_torch.bench import (cuda_graph_time_ms, cuda_time_ms,
 # decode), FLAGSHIP_QP's widest digit stacks (544 and 364 rows: more than
 # the 264 rows that fill the card at two CTAs an SM), the REFERENCE_HEMPC
 # and MEDIUM digit stacks, and the batched steps' launches: the fused
-# FLAGSHIP regulator over 8 and 16 loops, the reference-shaped one over
-# 64 loops at REFERENCE_HEMPC (one launch carries every loop's rows)
+# FLAGSHIP regulator over 8 and 16 loops, the constrained FLAGSHIP_QP one
+# over 4, the reference-shaped one over 64 loops at REFERENCE_HEMPC (one
+# launch carries every loop's rows)
 SHAPES = (
     ("flagship digit stack", (11, 24), "FLAGSHIP"),
     ("flagship mod-down", (2, 22), "FLAGSHIP"),
@@ -43,6 +44,7 @@ SHAPES = (
     ("medium digit stack", (6, 14), "MEDIUM"),
     ("fused batch of 8: digit stack", (8, 11, 24), "FLAGSHIP"),
     ("fused batch of 16: digit stack", (16, 11, 24), "FLAGSHIP"),
+    ("flagship-qp batch of 4: digit stack", (4, 16, 34), "FLAGSHIP_QP"),
     ("fused batch of 8: mod-down", (8, 2, 22), "FLAGSHIP"),
     ("fused batch of 8: encode/encrypt/decode", (8, 22), "FLAGSHIP"),
     ("reference batch of 64: digit stack", (64, 4, 5), "REFERENCE_HEMPC"),

@@ -43,6 +43,7 @@ from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.gemv import gemv_apply, gemv_materials
 from hectr_tpu_torch.ckks.keyswitch import mul_ct
 from hectr_tpu_torch.ckks.scheme import Ciphertext, Plaintext, mod_down_to
+from hectr_tpu_torch.utils.rows import matvec
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,7 +379,12 @@ def make_pgd_mirror_regulator(model, plant, horizon: int, bounds, device,
     must match it to CKKS noise.  Its state is the running maximum of
     the input certificate max|du_unc - mid|/hw (start it at a float64
     zero; None skips it), which the caller holds to input_bound after
-    the loop."""
+    the loop.
+
+    Inputs [..., n] are a batch of loops (the JAX package vmaps the
+    mirror over them): every gain and H product goes through
+    ``utils.rows.matvec``, so on the CPU each row is bit-equal to its
+    1-D call, and the certificate is one per loop (state [*batch])."""
     from hectr_tpu_torch.control.mpc import mpc_gains, mpc_hessian
     from hectr_tpu_torch.control.stages import weighting_matrices
 
@@ -409,13 +415,13 @@ def make_pgd_mirror_regulator(model, plant, horizon: int, bounds, device,
         return mid + hw * acc
 
     def regulator(state, xhat, uhat, xr, ur):
-        du_unc = -(K_A @ (xhat - xr) + K_B @ (uhat - ur))
+        du_unc = -(matvec(K_A, xhat - xr) + matvec(K_B, uhat - ur))
         if state is not None:
-            cert = torch.max(torch.abs(du_unc - mid) / hw)
+            cert = (torch.abs(du_unc - mid) / hw).amax(-1)
             state = torch.maximum(state, cert)
         z = clip(du_unc, cs0)
         for _ in range(iters):
-            z = clip(z - eta * (H @ (z - du_unc)), cs_it)
-        return uhat + z[:nu], state
+            z = clip(z - eta * matvec(H, z - du_unc), cs_it)
+        return uhat + z[..., :nu], state
 
     return regulator

@@ -12,8 +12,9 @@ QP (hempc.qp_enc) on du before the final add.
 
 One closure serves one loop or a batch of independent loops (the JAX
 package vmaps its regulator over them): inputs [..., n], one batched
-encryption, gemv and decryption per step for all of them, keys and gemv
-materials shared, one canary per loop.  The encrypted QP takes one loop.
+encryption, gemv, encrypted QP and decryption per step for all of them,
+keys, gemv materials and the QP's plaintext constants shared, one
+canary per loop.
 
 The step is written once, over an op set: ``ckks.scheme_ops.SchemeOps``
 on one device, or a limb mesh's ``parallel.limb_ops.LimbOps``, which
@@ -136,10 +137,6 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
     def regulator(state, xhat, uhat, xr, ur):
         sampler, canary = state
         xhat, uhat, xr, ur = broadcast_loops(xhat, uhat, xr, ur)
-        if qp_solve is not None and xhat.dim() > 1:
-            raise ValueError("the encrypted QP (hempc.qp_enc) takes one "
-                             "loop: a batch with du bounds needs a batched "
-                             "QP, which is not ported")
         ct_xhat = enc_vec(xhat, sampler)
         ct_uhat = enc_vec(uhat, sampler)
         ct_xr = enc_vec(xr, sampler)

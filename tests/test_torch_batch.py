@@ -36,7 +36,6 @@ from hectr_tpu_torch.ckks import scheme as TS
 from hectr_tpu_torch.ckks.primes import find_ntt_primes
 from hectr_tpu_torch.control import ode as tode
 from hectr_tpu_torch.control import stages as tst
-from hectr_tpu_torch.control.mpc import MPCBounds
 from hectr_tpu_torch.control.plants import cstr as tcstr
 from hectr_tpu_torch.control.simulate import simulate, simulate_batch
 from hectr_tpu_torch.hempc import fused as TF
@@ -318,26 +317,6 @@ def test_batched_regulator_protocol(crypto, kind):
     assert np.max(np.abs(us.numpy() - np.asarray(jus))) <= 1e-10
     assert np.max(np.abs(canary.numpy() - np.asarray(jcanary))) <= 1e-10
     assert bool((canary > 0).all() and (canary < 1e-5).all())
-
-
-def test_batch_with_du_bounds_raises(crypto, monkeypatch):
-    """The encrypted QP takes one loop: a batched call of a regulator
-    with du bounds raises, naming the missing batched QP (make_encrypted_pgd
-    is stubbed: only the refusal is under test)."""
-    from hectr_tpu_torch.hempc import regulator as R
-
-    c = crypto
-    model, plant, _, _, _, _, _ = port_setup()
-    monkeypatch.setattr(R, "make_encrypted_pgd",
-                        lambda *a, **kw: (lambda du: du, None))
-    bounds = MPCBounds(dumin=np.array([-0.25, -0.004]),
-                       dumax=np.array([0.25, 0.004]))
-    reg = make_hempc_regulator(c["ctx"], c["keys"], c["rk"], model, plant, 4,
-                               bounds=bounds, relin_key=c["relin"])
-    state = hempc_init_state(TS.TorchSampler(3, CPU), CPU, (B,))
-    x, u = (torch.zeros(B, n, dtype=torch.float64) for n in (3, 2))
-    with pytest.raises(ValueError, match="batched QP"):
-        reg(state, x, u, x, u)
 
 
 @pytest.fixture(scope="module")

@@ -712,3 +712,86 @@ def test_limb_regulator_on_cuda_equals_unsharded(flagship_card):
     (x, u, (_, c)), (x1, u1, (_, c1)) = out
     assert np.array_equal(x, x1) and np.array_equal(u, u1)
     assert torch.equal(c, c1) and bool((c < 1e-5).all())
+
+
+# ---- the batched encrypted QP and the bench entry point on the card ---------
+
+
+def test_batched_qp_on_cuda_rows_equal_cpu(cuda_device, monkeypatch):
+    """The constrained regulator over 3 loops, two steps with u fed back,
+    at a logN=8 ring of 18 + 2 limbs (degree 3, one iteration), on the
+    card and on the CPU from the same draws, the gemv diagonals and the
+    QP's constants encoded on the CPU for both: every uploaded and
+    decrypted ciphertext bit-equal wherever the row's input encodes
+    agree (the card's float64 embedding may round an ulp apart), u
+    within 1e-12 everywhere."""
+    from chip_smoke import RowDraws, spy_regulator
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.bench import batch as BB
+    from hectr_tpu_torch.control.mpc import MPCBounds
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.hempc import qp_enc as Q
+
+    encode_diags = G._encode_diags
+    monkeypatch.setattr(G, "_encode_diags", lambda ctx, D, k, scale, device:
+                        encode_diags(ctx, D, k, scale, CPU).to(device))
+    const_pt = Q._const_pt
+
+    def const_on_cpu(ctx, v, k, scale, device):
+        pt = const_pt(ctx, v, k, scale, CPU)
+        return S.Plaintext(pt.data.to(device), pt.scale)
+
+    monkeypatch.setattr(Q, "_const_pt", const_on_cpu)
+    ctx = make_context(cfg.CKKSPreset(name="cuda-qp", logn=8, slots=16,
+                                      scale_bits=50, limb_bits=25,
+                                      mult_depth=8, special_limbs=2,
+                                      digit_width=2))
+    model, plant = cli.cstr_setup()
+    bounds = MPCBounds(dumin=np.array([-0.25, -0.004]),
+                       dumax=np.array([0.25, 0.004]))
+    xs, u0 = BB.protocol_inputs(3, 2, CPU, seed=5)
+    out = {}
+    for dev in (CPU, cuda_device):
+        keys = S.keygen(ctx, NumpySampler(0), dev)
+        relin = K.gen_relin_key(ctx, keys, NumpySampler(1), compact=True)
+        rk = K.gen_rotation_keys(ctx, keys, NumpySampler(2),
+                                 rotations=G.bsgs_rotations(16), compact=True)
+        reg = make_hempc_regulator(ctx, keys, rk, model, plant, 4,
+                                   bounds=bounds, relin_key=relin, qp_iters=1,
+                                   qp_degree=3, qp_input_bound=4.0)
+        state = hempc_init_state(RowDraws([10, 11, 12], dev), dev, (3,))
+        (us, _), rec = spy_regulator(lambda: BB.run_rounds(
+            reg, state, xs.to(dev), u0.to(dev), 1))
+        out[dev.type] = (us.cpu(), {k: [t.cpu() for t in v]
+                                    for k, v in rec.items()})
+    (us, rec), (us_c, rec_c) = out["cpu"], out["cuda"]
+    assert float((us - us_c).abs().max()) <= 1e-12
+    agree = 0
+    for i in range(2):
+        enc = range(4 * i, 4 * i + 4)
+        for b in range(3):
+            if all(torch.equal(rec["pt"][j][b], rec_c["pt"][j][b])
+                   for j in enc):
+                agree += 1
+                assert all(torch.equal(rec["ct"][j][b], rec_c["ct"][j][b])
+                           for j in enc)
+                assert torch.equal(rec["dec"][i][b], rec_c["dec"][i][b])
+    assert agree > 0
+
+
+def test_suite_sections_on_cuda(cuda_device, capsys):
+    """`python -m hectr_tpu_torch.bench.suite --sections
+    ntt_logn15,kernel_parity` through its main(): its last line is the
+    record main() returns, each section with its value, unit, gate and
+    result."""
+    import json
+
+    from hectr_tpu_torch.bench import suite
+
+    rec = suite.main(["--sections", "ntt_logn15,kernel_parity"])
+    last = capsys.readouterr().out.splitlines()[-1]
+    assert json.loads(last) == json.loads(json.dumps(rec))
+    assert list(rec["sections"]) == ["ntt_logn15", "kernel_parity"]
+    for r in rec["sections"].values():
+        assert r["ok"] is True and r["value"] > 0 and r["unit"] and r["gate"]
+    assert rec["sections"]["ntt_logn15"]["launches"]["ntt"] > 0

@@ -143,6 +143,7 @@ def test_package_imports_no_jax():
         "('jax', 'jaxlib', 'hectr_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'hectr_tpu_torch.parallel.limb_ops' in sys.modules\n"
+        "assert 'hectr_tpu_torch.bench.suite' in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
