@@ -49,13 +49,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      at those shapes and at every stacked shape CoeffOps gives them;
      CoeffOps rescale_pair, negacyclic_mul, rotate and the hoisted gemv at
      FLAGSHIP bit-equal to the single-device ops and decrypted to 1e-6;
-     the sharded transform's device times by D and logN beside bound and
-     single launch; the scaling report; and two torch.distributed ranks
-     sharing the card (gloo, chunks staged through the host), each
-     bit-equal on its shard (hectr_tpu_torch.bench.run_multiproc); then
-     encrypt -> mul_pt -> rescale_pair -> decrypt at logN = 16 and 17
-     through the scheme ops alone (ckks.ntt's route above 2^15) to 1e-6,
-     with the peak memory and the bytes the route's cached tables hold
+     the sharded transform's device times by D and logN, forward and
+     inverse, through the cross-shard kernels K4/K5 and with the eager
+     stages they replace, beside bound and single launch, K4/K5 alone
+     beside their bound and the plain cross stages, CUDA launches per
+     transform either way; the scaling report; and two torch.distributed
+     ranks sharing the card (gloo, chunks staged through the host), each
+     bit-equal on its shard, their stages through K4/K5's received form
+     (launches and a check against the plain stages per rank;
+     hectr_tpu_torch.bench.run_multiproc); then encrypt -> mul_pt ->
+     rescale_pair -> decrypt at logN = 16 and 17 through the scheme ops
+     alone (ckks.ntt's route above 2^15) to 1e-6, with the peak memory
+     and the bytes the route's cached tables hold; K4/K5's local form
+     bit-equal to the plain cross stages at every shape the phase
+     launched it at
      "batch" (after "parallel", FLAGSHIP on phase 4's keys): B loops
      through one regulator, every op one launch for the batch.
      REFERENCE_HEMPC: simulate_batch over 16 loops x 40 steps (loop b's
@@ -94,8 +101,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      its JSON line names the three, each passed its gate
  10. each kernel launched on every path that uses it (K1/K2 in phases
      3, 4, 6-9, "parallel", "batch" and "limb", with their launches by
-     shape; K3 in phase
-     5); each
+     shape; K3 in phase 5; K4/K5 in "parallel"); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
 """
@@ -238,16 +244,18 @@ def phase_kernels(device, kernel_rows):
 
 
 def reset_launches() -> None:
-    from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda
+    from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda, ntt_exchange_cuda
 
     ntt_cuda.reset_launches()
     mulmod_cuda.reset_launches()
+    ntt_exchange_cuda.reset_launches()
 
 
 def read_launches() -> dict:
-    from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda
+    from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda, ntt_exchange_cuda
 
-    return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES}
+    return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES,
+            **ntt_exchange_cuda.LAUNCHES}
 
 
 def print_launch_shapes(label: str, per: int, what: str) -> None:
@@ -388,10 +396,9 @@ def phase_fused(device, flagship, card):
     return launches
 
 
-def phase_parallel(device, flagship, card):
+def phase_parallel(device, flagship, card, kernel_rows):
     """The coefficient axis on a local mesh at full width, and two ranks
     sharing the card."""
-    from hectr_tpu_torch import bench
     from hectr_tpu_torch.bench import run_multiproc
     from hectr_tpu_torch.ckks import ntt as T
     from hectr_tpu_torch.ckks import scheme as S
@@ -399,6 +406,7 @@ def phase_parallel(device, flagship, card):
     from hectr_tpu_torch.ckks.keyswitch import rotate
     from hectr_tpu_torch.ckks.primes import find_ntt_primes
     from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
     from hectr_tpu_torch.parallel.coeff_ops import CoeffOps
     from hectr_tpu_torch.parallel.multihost import ntt_scaling_efficiency
     from hectr_tpu_torch.parallel.ntt_shard import (clear_local_tables,
@@ -457,6 +465,8 @@ def phase_parallel(device, flagship, card):
     t_sharded = time.perf_counter() - t0
     launches = read_launches()
     print_launch_shapes("parallel", 1, "phase")
+    exchange_shapes = collections.Counter(EX.LAUNCH_SHAPES)
+    print_exchange_shapes("parallel", exchange_shapes)
 
     n_cases = 0
     for (label, t, _), x in zip(cases, inputs):
@@ -536,25 +546,7 @@ def phase_parallel(device, flagship, card):
           f"path alone {t_sharded:.2f} s; launches {launches}", flush=True)
     del sharded, scheme, want
 
-    # device times of the sharded forward transform (CUDA-graph replay)
-    peak = bench.lazy_mult_peak_per_s()
-    for (label, t, batch), x in zip(cases, inputs):
-        logn = t.n.bit_length() - 1
-        rows = x.numel() >> logn
-        bound, by = bench.ntt_bound(rows, len(t.primes), logn, peak)
-        ms = {}
-        for D, mesh in meshes.items():
-            if t.n // D > 1 << 15:
-                continue
-            fwd, _ = local_ntt_fns(t, mesh)
-            xs = mesh.shard(x)
-            ms[D] = round(bench.cuda_graph_time_ms(lambda: fwd(xs)), 4)
-        single = (f"; single K1 launch "
-                  f"{bench.cuda_graph_time_ms(lambda: T.ntt(x, t)):.4f} ms"
-                  if logn <= 15 else "; no single launch above 2^15")
-        print(f"[parallel] sharded ntt {list(x.shape)} ({label}) ms by D "
-              f"{json.dumps(ms)}; bound {bound:.4f} ms ({by}){single} on "
-              f"{card}", flush=True)
+    time_sharded(cases, inputs, meshes, card, kernel_rows)
 
     for logn, D in ((15, 8), (17, 4)):
         rep = ntt_scaling_efficiency(logn, k, meshes[D], device)
@@ -564,6 +556,19 @@ def phase_parallel(device, flagship, card):
     rec = run_multiproc.launch(2, "cuda", 15, 4, "reference-hempc", 300.0)
     check(rec["ok"] and rec["bitexact_per_shard"] and rec["ranks"] == 2,
           f"parallel: two-rank run {rec}")
+    for r, (got, checked) in enumerate(zip(rec["exchange_launches"],
+                                           rec["exchange_checked"])):
+        check(got["exchange_fwd"] > 0 and got["exchange_inv"] > 0
+              and checked > 0,
+              f"parallel: rank {r} ran K4/K5's received form {got} times, "
+              f"held {checked} stages against plain")
+    print(f"[parallel] two ranks: K4/K5's received form launched "
+          f"{rec['exchange_launches']} times per rank "
+          f"(by shape on rank 0: {json.dumps(rec['exchange_shapes'])}); "
+          f"{rec['exchange_checked']} stages per rank held bit-equal to the "
+          f"plain stages on the chunk the partner sent; forward transforms "
+          f"under torch.profiler, per rank: "
+          f"{json.dumps(rec['transform_profiles'])}", flush=True)
     print(f"[parallel] two ranks on one card ({rec['mesh']}): sharded ntt "
           f"{rec['ntt']} and {rec['scheme_ops']} bit-equal on each rank's "
           f"shard; paired exchange of {rec['exchange_bytes']} B at "
@@ -574,18 +579,151 @@ def phase_parallel(device, flagship, card):
     # rings' own: later phases get that device memory back
     clear_local_tables()
     for logn in (16, 17):
-        large_ring_chain(logn, device, card)
+        chain_launches, chain_shapes = large_ring_chain(logn, device, card)
+        for name, count in chain_launches.items():
+            launches[name] += count
+        exchange_shapes.update(chain_shapes)
+    for name in EX.LAUNCHES:
+        check(launches[name] > 0, f"parallel: {name} never launched")
+    max_err = exchange_against_plain(exchange_shapes, device, gen)
+    for name, err in max_err.items():
+        kernel_rows[name]["max_abs_err"] = err
+    print(f"[parallel] K4/K5 (local form) bit-equal to cross_stages_plain at "
+          f"every shape this phase launched them at ({len(exchange_shapes)} "
+          f"shapes, the sharded_ring chains' and CoeffOps' included); max "
+          f"|kernel - plain| {max_err}; launches in the phase "
+          f"{ {name: launches[name] for name in EX.LAUNCHES} }", flush=True)
     return launches
+
+
+def print_exchange_shapes(label: str, shapes) -> None:
+    """K4/K5's launches by (kernel, form, input shape)."""
+    got = {f"{name} {form} {list(shape)}": n
+           for (name, form, shape), n in sorted(shapes.items())}
+    print(f"[{label}] K4/K5 launches by shape: {json.dumps(got)}", flush=True)
+
+
+def exchange_against_plain(shapes, device, gen) -> dict:
+    """K4/K5's local form against cross_stages_plain at every shape in
+    `shapes` (keys (name, form, shape) of ``LAUNCH_SHAPES``), on uniform
+    residues with 0 and p - 1 planted, over 30-bit primes of that ring:
+    the largest |kernel - plain| by kernel.  Fails on any difference."""
+    from hectr_tpu_torch.ckks import ntt as T
+    from hectr_tpu_torch.ckks.primes import find_ntt_primes
+    from hectr_tpu_torch.ops.ntt_exchange_cuda import exchange_local_cuda
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import cross_stages_plain
+
+    err = {"exchange_fwd": 0, "exchange_inv": 0}
+    for name, form, shape in sorted(shapes):
+        check(form == "local", f"{name}: {form} form launched in one process")
+        *lead, L, D, C = shape
+        n = D * C
+        primes = tuple(find_ntt_primes(30, L, 2 * n))
+        t = T.ntt_tables(n, primes, device)
+        x = random_residues(primes, tuple(lead), n, gen,
+                            device).unflatten(-1, (D, C))
+        inverse = name == "exchange_inv"
+        got = exchange_local_cuda(x, t, inverse)
+        want = cross_stages_plain(x, t, LocalMesh(D), inverse)
+        torch.cuda.synchronize()
+        err[name] = max(err[name], int((got - want).abs().max()))
+        check(torch.equal(got, want), f"{name} != plain at {list(shape)}")
+    return err
+
+
+# the kernel line's K4/K5 numbers: the 2^17 ring's route (ckks.ntt.sharded_ring)
+EXCHANGE_HEADLINE = ("2^17 ring", 4)
+
+
+def time_sharded(cases, inputs, meshes, card, kernel_rows):
+    """Device ms of the sharded transform by D (CUDA-graph replay),
+    forward and inverse, through K4/K5 and with the eager stages; K4 and
+    K5 alone beside their bound (``bench.exchange_bound``) and the plain
+    cross stages (CUDA events); CUDA launches per forward transform
+    either way (torch.profiler)."""
+    from hectr_tpu_torch import bench
+    from hectr_tpu_torch.bench.batch import profile_kernels
+    from hectr_tpu_torch.ckks import ntt as T
+    from hectr_tpu_torch.ops.ntt_exchange_cuda import exchange_local_cuda
+    from hectr_tpu_torch.parallel.ntt_shard import (cross_stages_plain,
+                                                    local_ntt_fns,
+                                                    local_tables)
+
+    peak = bench.lazy_mult_peak_per_s()
+    for (label, t, _), x in zip(cases, inputs):
+        logn = t.n.bit_length() - 1
+        rows = x.numel() >> logn
+        L = len(t.primes)
+        bound, by = bench.ntt_bound(rows, L, logn, peak)
+        ms = collections.defaultdict(dict)
+        launches = {}
+        for D, mesh in meshes.items():
+            if t.n // D > 1 << 15:
+                continue
+            fwd, inv = local_ntt_fns(t, mesh)
+            xs = mesh.shard(x)
+            ms["forward"][D] = bench.cuda_graph_time_ms(lambda: fwd(xs))
+            ms["inverse"][D] = bench.cuda_graph_time_ms(lambda: inv(xs))
+            if D == 1:
+                continue
+            lt = local_tables(t, mesh)
+
+            def eager_fwd(v):       # the plain cross stages, then K1
+                v = cross_stages_plain(v, t, mesh, False)
+                return T.ntt(v.flatten(-3, -2), lt).unflatten(-2, (L, D))
+
+            def eager_inv(v):       # K2, then the plain cross stages
+                v = T.intt(v.flatten(-3, -2), lt).unflatten(-2, (L, D))
+                return cross_stages_plain(v, t, mesh, True)
+
+            check(torch.equal(eager_fwd(xs), fwd(xs))
+                  and torch.equal(eager_inv(xs), inv(xs)),
+                  f"parallel: eager stages != K4/K5 at {label}, D={D}")
+            ms["eager forward"][D] = bench.cuda_graph_time_ms(
+                lambda: eager_fwd(xs))
+            ms["eager inverse"][D] = bench.cuda_graph_time_ms(
+                lambda: eager_inv(xs))
+            for name, inverse in (("K4", False), ("K5", True)):
+                ms[name][D] = bench.cuda_graph_time_ms(
+                    lambda: exchange_local_cuda(xs, t, inverse))
+                ms[f"plain {name}"][D] = bench.cuda_time_ms(
+                    lambda: cross_stages_plain(xs, t, mesh, inverse))
+            ex_bound, ex_by = bench.exchange_bound(rows, L, logn, D, "local",
+                                                   peak)
+            ms["K4/K5 bound"][D] = ex_bound
+            launches[D] = {
+                "K4/K5": profile_kernels(lambda: fwd(xs))["kernel_launches"],
+                "eager": profile_kernels(
+                    lambda: eager_fwd(xs))["kernel_launches"]}
+            if (label, D) == EXCHANGE_HEADLINE:
+                for key, name in (("exchange_fwd", "K4"),
+                                  ("exchange_inv", "K5")):
+                    kernel_rows[key].update(
+                        ms=ms[name][D], plain_ms=ms[f"plain {name}"][D],
+                        bound_ms=ex_bound, bound_by=ex_by, library_ms=None)
+        single = (f"; single K1 launch "
+                  f"{bench.cuda_graph_time_ms(lambda: T.ntt(x, t)):.5f} ms"
+                  if logn <= 15 else "; no single launch above 2^15")
+        table = {k: {D: round(v, 5) for D, v in row.items()}
+                 for k, row in ms.items()}
+        print(f"[parallel] sharded transform {list(x.shape)} ({label}) ms by "
+              f"D on {card}: {json.dumps(table)}; whole-transform bound "
+              f"{bound:.5f} ms ({by}){single}; CUDA launches per forward "
+              f"transform by D {json.dumps(launches)}", flush=True)
 
 
 def large_ring_chain(logn, device, card):
     """encrypt -> mul_pt -> rescale_pair -> decrypt at a ring above 2^15
     through the scheme ops alone (ckks.ntt routes every transform to the
     sharded one): the decrypted product to 1e-6, the chain's peak device
-    memory above what was held before it, and the bytes the route's cached local tables hold."""
+    memory above what was held before it, and the bytes the route's
+    cached local tables hold.  Returns the chain's kernel launches and
+    K4/K5's launches by shape."""
     from hectr_tpu_torch.ckks import scheme as S
     from hectr_tpu_torch.ckks.context import make_context
     from hectr_tpu_torch.config import CKKSPreset
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
     from hectr_tpu_torch.parallel.ntt_shard import clear_local_tables
 
     ctx = make_context(CKKSPreset(name=f"he-{logn}-109", logn=logn, slots=16,
@@ -594,6 +732,7 @@ def large_ring_chain(logn, device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
+    reset_launches()
     keys = S.keygen(ctx, S.TorchSampler(0, device), device)
     v = torch.linspace(-1, 1, 16, dtype=torch.float64, device=device)
     w = torch.linspace(0.5, -0.5, 16, dtype=torch.float64, device=device)
@@ -606,6 +745,8 @@ def large_ring_chain(logn, device, card):
     err = float((re - v * w).abs().max())
     err_im = float(im.abs().max())
     torch.cuda.synchronize()
+    launches = read_launches()
+    shapes = collections.Counter(EX.LAUNCH_SHAPES)
     peak = torch.cuda.max_memory_allocated(device)
     del ct, pt, out, re, im
     held = torch.cuda.memory_allocated(device)
@@ -616,10 +757,13 @@ def large_ring_chain(logn, device, card):
           f"sharded route: decrypted product off by {err:.3e} (imag "
           f"{err_im:.3e}); peak device memory {peak - base} B above the "
           f"{base} B held before; the route's cached local tables held "
-          f"{cached} B on {card}", flush=True)
+          f"{cached} B; launches {launches} on {card}", flush=True)
     check(err < 1e-6 and err_im < 1e-6,
           f"logN={logn} chain decrypted off by {err}, {err_im}")
     check(cached > 0, f"logN={logn}: no local tables were cached")
+    check(launches["exchange_fwd"] > 0 and launches["exchange_inv"] > 0,
+          f"logN={logn}: the chain ran no K4/K5 launch: {launches}")
+    return launches, shapes
 
 
 class RowDraws:
@@ -1424,17 +1568,19 @@ def main() -> None:
 
     from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
-    from hectr_tpu_torch.ops import build, mulmod_cuda, ntt_cuda
+    from hectr_tpu_torch.ops import (build, mulmod_cuda, ntt_cuda,
+                                     ntt_exchange_cuda)
     from hectr_tpu_torch.utils import read_traj_bin
 
     from hectr_tpu_torch.utils.pmu import Timer
 
     timer = Timer()          # each phase's wall time, device synchronized
     with timer.section("build"):
-        sources = ("ntt.cu", "mulmod_chain.cu")
+        sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu")
         libs = build.build(*sources)
         ntt_cuda.library()
         mulmod_cuda.library()
+        ntt_exchange_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
           f"{timer.sections['build']:.2f} s", flush=True)
@@ -1449,6 +1595,14 @@ def main() -> None:
         "mulmod_chain": {"name": "mulmod_chain", "route": "cuda",
                          "source": "hectr_tpu_torch/csrc/mulmod_chain.cu",
                          "replaces": "scripts/bench_vpu_ceiling.py:61"},
+        # no Pallas kernel: the JAX package's cross-shard stages are XLA
+        # code inside shard_map
+        "exchange_fwd": {"name": "ntt_exchange_fwd", "route": "cuda",
+                         "source": "hectr_tpu_torch/csrc/ntt_exchange.cu",
+                         "replaces": "hectr_tpu/parallel/ntt_shard.py:117"},
+        "exchange_inv": {"name": "ntt_exchange_inv", "route": "cuda",
+                         "source": "hectr_tpu_torch/csrc/ntt_exchange.cu",
+                         "replaces": "hectr_tpu/parallel/ntt_shard.py:137"},
     }
     with timer.section("kernels"):
         phase_kernels(device, kernel_rows)
@@ -1479,7 +1633,7 @@ def main() -> None:
     with timer.section("fused"):
         launches_fused = phase_fused(device, flagship, card)
     with timer.section("parallel"):
-        launches_par = phase_parallel(device, flagship, card)
+        launches_par = phase_parallel(device, flagship, card, kernel_rows)
     with timer.section("batch"):
         launches_batch = phase_batch(device, flagship, card)
     with timer.section("limb"):
@@ -1505,6 +1659,11 @@ def main() -> None:
                   f"{kname} kernel never launched in the {label} phase")
     for kname in ("ntt", "intt"):
         kernel_rows[kname]["launches"] = sum(l[kname] for _, l in loops)
+    for kname in ntt_exchange_cuda.LAUNCHES:
+        kernel_rows[kname]["launches"] = sum(l.get(kname, 0)
+                                             for _, l in loops)
+        check(kernel_rows[kname]["launches"] > 0,
+              f"{kname} kernel never launched")
     print(f"[phases] wall time per phase (s) on {card}: "
           f"{json.dumps({k: round(v, 2) for k, v in timer.report().items()})}",
           flush=True)

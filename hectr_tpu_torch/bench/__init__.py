@@ -85,3 +85,30 @@ def ntt_bound(rows: int, limbs: int, logn: int, mult_peak: float
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = mults / mult_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def exchange_bound(rows: int, limbs: int, logn: int, D: int, form: str,
+                   mult_peak: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one launch of the
+    cross-shard exchange kernels K4/K5 over `rows` int64 rows of a ring of
+    2^logn on `limbs` primes split into D shards, with ``ntt_bound``'s
+    conventions.  form "local": every shard in one tensor, all log2 D
+    stages (each element read and written once, the limbs' D - 1
+    twiddles and companions and the primes read once; log2 D * N/2 lazy
+    multiplies a row).  form "received": one shard's chunk of N/D a row,
+    one stage (its own chunk read, the partner's read as the wire's int32
+    words, the result written; one twiddle and companion a limb; one
+    multiply an element, the most either half of the butterfly does)."""
+    n = 1 << logn
+    if form == "local":
+        nbytes = rows * n * 8 * 2 + limbs * ((D - 1) * 4 * 2 + 4)
+        mults = rows * (D.bit_length() - 1) * (n // 2)
+    elif form == "received":
+        chunk = n // D
+        nbytes = rows * chunk * (8 + 4 + 8) + limbs * (4 * 2 + 4)
+        mults = rows * chunk
+    else:
+        raise ValueError(f"form {form!r}: 'local' or 'received'")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mults / mult_peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

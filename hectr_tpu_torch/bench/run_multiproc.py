@@ -23,7 +23,14 @@ mesh is the coefficient axis alone):
     and 3) on a real ciphertext of the preset (keys from fixed seeds, the
     same on every rank);
 
-and the paired chunk exchange, timed.  On its limb subgroup (when
+and the paired chunk exchange, timed.  On the card the cross-shard
+stages run K4/K5's received form (``ops.ntt_exchange_cuda``): the record
+gives their launches by shape over the checks above, then holds them
+against the plain stages (``cross_stages_plain``) on one chunk, and
+profiles a few forward transforms a rank (host ms; device ms by kernel,
+the transport's own kernels apart).
+
+On its limb subgroup (when
 ``--batch`` or ``--limb`` exceeds 1): one closed-loop step of the
 preset's reference-shaped regulator (BSGS rotation keys) over its batch
 group's loops (``LOOPS_PER_GROUP`` each) with keys, materials and
@@ -195,10 +202,12 @@ def coeff_checks(mesh, dev, logn: int, limbs: int, preset: str) -> dict:
     from hectr_tpu_torch.ckks.primes import find_ntt_primes
     from hectr_tpu_torch.config import PRESETS
     from hectr_tpu_torch.ops.ntt_cuda import MAX_LOGN
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
     from hectr_tpu_torch.parallel.coeff_ops import CoeffOps
     from hectr_tpu_torch.parallel.ntt_shard import WIRE_BYTES, local_ntt_fns
 
     rank = mesh.rank
+    EX.reset_launches()
 
     # --- the sharded NTT, bit-equal on this rank's shard ---------------
     n = 1 << logn
@@ -268,8 +277,68 @@ def coeff_checks(mesh, dev, logn: int, limbs: int, preset: str) -> dict:
     same(cops.make_gemv(M, k, rot, dev)(sharded(ct)),
          make_gemv(ctx, M, k, rot, dev, method="diag")(ct), "gemv")
     _sync(dev)
-    return {"mesh": mesh.describe(dev), "exchange_bytes": exchange_bytes,
-            "exchange_gb_per_s": exchange_bytes / exchange_s / 1e9}
+    out = {"mesh": mesh.describe(dev), "exchange_bytes": exchange_bytes,
+           "exchange_gb_per_s": exchange_bytes / exchange_s / 1e9}
+    if dev.type == "cuda":
+        # K4/K5's received form: its launches on the sharded transform
+        # and the scheme ops above, then held against the plain stages
+        out["exchange_launches"] = dict(EX.LAUNCHES)
+        out["exchange_shapes"] = {
+            f"{name} {form} {list(shape)}": count
+            for (name, form, shape), count in sorted(EX.LAUNCH_SHAPES.items())}
+        out["exchange_checked"] = received_form_checks(mesh, t,
+                                                       mesh.shard(a))
+        out["transform_profile"] = profile_transform(fwd, mesh.shard(a),
+                                                     mesh, dev)
+    return out
+
+
+def received_form_checks(mesh, t, x) -> int:
+    """K4/K5's received form (``ntt_shard.cross_stages`` on this rank's
+    CUDA chunk x) against ``cross_stages_plain`` on the same chunk, each
+    direction; returns the stages compared.  Collective: every rank of
+    the mesh calls it."""
+    from hectr_tpu_torch.parallel.ntt_shard import (cross_stages,
+                                                    cross_stages_plain)
+
+    for inverse in (False, True):
+        if not torch.equal(cross_stages(x, t, mesh, inverse),
+                           cross_stages_plain(x, t, mesh, inverse)):
+            raise AssertionError(f"received form != plain on shard "
+                                 f"{mesh.rank}, inverse={inverse}")
+    return 2 * (mesh.size.bit_length() - 1)
+
+
+PROFILED_TRANSFORMS = 5
+
+
+def profile_transform(fwd, x, mesh, dev) -> dict:
+    """``PROFILED_TRANSFORMS`` sharded forward transforms of this rank's
+    chunk x under torch.profiler, after a warm call and a barrier: each
+    one's host ms, and launches and device ms by kernel over all of them
+    (the exchange's transport kernels apart from K4/K5 and K1).
+    Collective: every rank calls it."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from hectr_tpu_torch.bench.batch import _device_us
+
+    fwd(x)
+    _sync(dev)
+    dist.barrier(group=mesh.group)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        host_ms = []
+        for _ in range(PROFILED_TRANSFORMS):
+            t0 = time.perf_counter()
+            fwd(x)
+            _sync(dev)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    kernels = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            kernels[evt.key[:72]] = [evt.count, _device_us(evt) / 1e3]
+    return {"host_ms": host_ms, "device_ms_by_kernel": kernels}
 
 
 def free_port() -> int:
@@ -291,7 +360,7 @@ def launch(ranks: int = 2, device: str = "cuda", logn: int = 15,
     if device == "cuda":
         from hectr_tpu_torch.ops import build
 
-        build.build("ntt.cu")
+        build.build("ntt.cu", "ntt_exchange.cu")
     port = free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("HECTR_COORDINATOR", "HECTR_NUM_PROCS",
@@ -348,6 +417,13 @@ def launch(ranks: int = 2, device: str = "cuda", logn: int = 15,
                           f"{preset}",
             "exchange_bytes": first["exchange_bytes"],
             "exchange_gb_per_s": [r["exchange_gb_per_s"] for r in results]})
+    if "exchange_launches" in first:
+        record["exchange_launches"] = [r["exchange_launches"]
+                                       for r in results]
+        record["exchange_shapes"] = first["exchange_shapes"]
+        record["exchange_checked"] = [r["exchange_checked"] for r in results]
+        record["transform_profiles"] = [r["transform_profile"]
+                                        for r in results]
     if "limb_step" in first:
         record["limb_steps"] = [r["limb_step"] for r in results]
     record["elapsed_s"] = round(time.perf_counter() - t0, 1)

@@ -175,9 +175,11 @@ class ProcessMesh(_Ranks):
         dist.all_gather(parts, send, group=self.group)
         return torch.cat(parts, dim=-2).to(x.device).to(x.dtype).flatten(-2)
 
-    def ppermute(self, x: torch.Tensor, dist_: int) -> torch.Tensor:
+    def ppermute_wire(self, x: torch.Tensor, dist_: int) -> torch.Tensor:
         """This rank's chunk goes to rank ``r ^ dist_``, whose chunk
-        comes back: one paired isend/irecv."""
+        comes back as it travels: int32 residues on x's device (the
+        receive buffer itself under NCCL; copied off the host where the
+        transport is staged).  One paired isend/irecv."""
         peer = self._global(self.rank ^ dist_)
         send = self._wire(x)
         recv = self._recv(send.shape, x)
@@ -185,7 +187,11 @@ class ProcessMesh(_Ranks):
                dist.P2POp(dist.irecv, recv, peer, self.group)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        return recv.to(x.device).to(x.dtype)
+        return recv.to(x.device)
+
+    def ppermute(self, x: torch.Tensor, dist_: int) -> torch.Tensor:
+        """``ppermute_wire`` widened to x's dtype."""
+        return self.ppermute_wire(x, dist_).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

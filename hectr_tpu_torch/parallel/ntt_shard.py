@@ -5,14 +5,21 @@ Shard the N coefficients into D contiguous chunks of C = N/D.  A
 Cooley-Tukey stage with butterfly distance `half`:
 
   half >= C  (the first log2 D stages): the partner element lives on
-      shard  s ^ (half/C).  One ``mesh.ppermute`` exchanges whole chunks;
-      each shard then computes its output locally --
+      shard  s ^ (half/C).  Each shard computes its output from its own
+      chunk and its partner's --
           u-shard:  out = u_own + S * v_recv
           v-shard:  out = u_recv - S * v_own
       The twiddle S is scalar per (limb, shard) at these stages because
-      a butterfly group (2*half elements) spans whole chunks.  These
-      stages are plain elementwise tensor code, as they are XLA code in
-      the JAX package.
+      a butterfly group (2*half elements) spans whole chunks.  In plain
+      PyTorch each stage is one ``mesh.ppermute`` and one
+      ``exchange_stage_plain`` (``cross_stages_plain``).  On the card
+      (``cross_stages``) the kernel K4, or K5 for the inverse, runs
+      them: where every shard lies in one tensor (a local mesh) the
+      partner is row s ^ d of the same tensor and one launch does all
+      log2 D stages (``ops.ntt_exchange_cuda.exchange_local_cuda``);
+      where a process holds one shard, each stage is one exchange of
+      whole chunks and one launch on the chunk as it arrived
+      (``exchange_recv_cuda``, reading the wire's int32 words).
 
   half < C  (the remaining log2 C stages): fully local.  They are
       exactly a negacyclic transform of size C over a gathered twiddle
@@ -28,6 +35,10 @@ log2 D cross-shard stages.  The local tables carry the whole ring's
 N^-1, so the local pass applies it; every later operation is exact
 mod p on canonical residues, so the result equals scaling last, bit for
 bit.
+
+Dispatch is by the tensor's device, as ``ckks.ntt``'s: a CUDA tensor
+goes to K4/K5, which raise on what they do not take; a CPU tensor to
+the plain stages.
 
 Communication per transform: log2(D) chunk exchanges of C residues per
 limb, the least a butterfly network needs without an all-to-all
@@ -136,6 +147,73 @@ def _exchange_constants(n: int, primes: tuple[int, ...], size: int,
     return tuple(out)
 
 
+def exchange_stage_plain(own: torch.Tensor, recv: torch.Tensor, w, w_shoup,
+                         is_u, p, inverse: bool) -> torch.Tensor:
+    """One cross-shard stage against the partner's chunk, in plain
+    PyTorch: the reference of K4/K5's received form.  own: int64
+    ``[..., L, S, C]``; recv: what each shard received from its partner,
+    int64 or the wire's int32 bit patterns; w, w_shoup [L, S, 1] the
+    stage's twiddles, is_u [S, 1], p [L, 1, 1].
+      forward:  u-shard u + S v_recv,  v-shard u_recv - S v_own
+      inverse:  u-shard u + v_recv,    v-shard (u_recv - v_own) S"""
+    recv = recv.to(own.dtype)
+    if inverse:
+        return torch.where(is_u, add_mod(own, recv, p),
+                           mul_mod_shoup(sub_mod(recv, own, p), w, w_shoup,
+                                         p))
+    sv_own = mul_mod_shoup(own, w, w_shoup, p)
+    sv_recv = mul_mod_shoup(recv, w, w_shoup, p)
+    return torch.where(is_u, add_mod(own, sv_recv, p),
+                       sub_mod(recv, sv_own, p))
+
+
+def cross_stages_plain(x: torch.Tensor, t: NTTTables, mesh,
+                       inverse: bool) -> torch.Tensor:
+    """Every cross-shard stage of the ring of `t` on the shards `mesh`
+    holds here, in plain PyTorch: one ``exchange_stage_plain`` against
+    ``mesh.ppermute`` a stage, in ``_exchange_constants``' order (the
+    inverse back to front).  x: int64 ``[..., L, S, C]``.  On a local
+    mesh the partner at distance d is row s ^ d of the same tensor, so
+    nothing travels; this is the CPU path of both mesh kinds and the
+    reference of K4/K5's local form.  Collective on a process mesh."""
+    S = len(mesh.shards)
+    if x.shape[-2] != S or mesh.size * x.shape[-1] != t.n:
+        raise ValueError(f"expected [..., {len(t.primes)}, {S}, "
+                         f"{t.n // mesh.size}], got {tuple(x.shape)}")
+    stages = _exchange_constants(t.n, t.primes, mesh.size,
+                                 tuple(mesh.shards), x.device)
+    pcol = t.p[..., None]                                  # [L, 1, 1]
+    for d, is_u, w, wsh, wi, wish in (reversed(stages) if inverse
+                                      else stages):
+        tw = (wi, wish) if inverse else (w, wsh)
+        x = exchange_stage_plain(x, mesh.ppermute(x, d), *tw, is_u, pcol,
+                                 inverse)
+    return x
+
+
+def cross_stages(x: torch.Tensor, t: NTTTables, mesh,
+                 inverse: bool) -> torch.Tensor:
+    """``cross_stages_plain``, dispatched by device: on a CUDA tensor
+    K4 (forward) or K5 (inverse), the local form's one launch when
+    every shard is here, else one received-form launch per exchange on
+    the chunk as it arrives (``mesh.ppermute_wire``); on a CPU tensor
+    the plain stages.  Collective on a process mesh."""
+    if x.device.type != "cuda":
+        return cross_stages_plain(x, t, mesh, inverse)
+    from hectr_tpu_torch.ops.ntt_exchange_cuda import (exchange_local_cuda,
+                                                       exchange_recv_cuda)
+
+    if len(mesh.shards) == mesh.size:          # every shard here
+        return (x if mesh.size == 1 else
+                exchange_local_cuda(x.contiguous(), t, inverse))
+    stages = _exchange_constants(t.n, t.primes, mesh.size,
+                                 tuple(mesh.shards), x.device)
+    for d, *_ in (reversed(stages) if inverse else stages):
+        x = exchange_recv_cuda(x.contiguous(), mesh.ppermute_wire(x, d), t,
+                               mesh.shards[0], d, inverse)
+    return x
+
+
 def local_ntt_fns(t: NTTTables, mesh):
     """(fwd_local, inv_local) on sharded tensors ``[..., L, S, C]``: L is
     `t`'s limb count, S the shards `mesh` holds in this process and
@@ -148,8 +226,6 @@ def local_ntt_fns(t: NTTTables, mesh):
         raise ValueError(f"a ring of {n} over {D} shards leaves chunks "
                          f"of {n / D:g}; need at least 2")
     L, S = len(t.primes), len(mesh.shards)
-    key = (n, t.primes, D, tuple(mesh.shards), t.device)
-    pcol = t.p[..., None]                                  # [L, 1, 1]
 
     def check(x):
         if x.shape[-3:] != (L, S, C):
@@ -158,26 +234,14 @@ def local_ntt_fns(t: NTTTables, mesh):
 
     def fwd_local(x: torch.Tensor) -> torch.Tensor:
         check(x)
-        for d, is_u, w, wsh, _, _ in _exchange_constants(*key):
-            recv = mesh.ppermute(x, d)
-            sv_own = mul_mod_shoup(x, w, wsh, pcol)
-            sv_recv = mul_mod_shoup(recv, w, wsh, pcol)
-            x = torch.where(is_u, add_mod(x, sv_recv, pcol),    # u + S v
-                            sub_mod(recv, sv_own, pcol))        # u_recv - S v
+        x = cross_stages(x, t, mesh, False)
         rows = ntt(x.flatten(-3, -2), local_tables(t, mesh))
         return rows.unflatten(-2, (L, S))
 
     def inv_local(x: torch.Tensor) -> torch.Tensor:
         check(x)
         rows = intt(x.flatten(-3, -2), local_tables(t, mesh))
-        x = rows.unflatten(-2, (L, S))
-        for d, is_u, _, _, w, wsh in reversed(_exchange_constants(*key)):
-            recv = mesh.ppermute(x, d)
-            # u-shard: out = u + v_recv ; v-shard: out = (u_recv - v_own) S
-            x = torch.where(is_u, add_mod(x, recv, pcol),
-                            mul_mod_shoup(sub_mod(recv, x, pcol), w, wsh,
-                                          pcol))
-        return x
+        return cross_stages(rows.unflatten(-2, (L, S)), t, mesh, True)
 
     return fwd_local, inv_local
 

@@ -504,6 +504,129 @@ def test_coeff_ops_on_cuda_bit_equal_single_device(cuda_device):
                        S.rescale_pair(ctx, prod).data)
 
 
+# ---- the cross-shard stages: K4 / K5 (ops/ntt_exchange_cuda.py) ----------
+
+# (batch + (L,), logN, D): the sharded_ring routes of 2^16 and 2^17,
+# FLAGSHIP's digit stack over 8 shards, and chunks of 2
+EXCHANGE_CASES = [((22,), 16, 2), ((22,), 17, 4), ((11, 24), 15, 8),
+                  ((2, 3), 4, 8)]
+
+
+def exchange_problem(device, lead, logn, seed):
+    primes = tuple(find_ntt_primes(30, lead[-1], 2 << logn))
+    t = T.ntt_tables(1 << logn, primes, device)
+    a = residues(primes, lead + (1 << logn,), seed).to(device)
+    return t, a
+
+
+@pytest.mark.parametrize("lead,logn,D", EXCHANGE_CASES)
+def test_exchange_local_form_bit_equal_plain(cuda_device, lead, logn, D):
+    """K4 / K5's local form (every stage, one launch) against
+    cross_stages_plain on the same tensor, and the counters move by one
+    launch under (name, "local", shape)."""
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import cross_stages_plain
+
+    t, a = exchange_problem(cuda_device, lead, logn, logn + D)
+    x = LocalMesh(D).shard(a)
+    for inverse, name in ((False, "exchange_fwd"), (True, "exchange_inv")):
+        before = dict(EX.LAUNCHES)
+        shapes = EX.LAUNCH_SHAPES[name, "local", tuple(x.shape)]
+        got = EX.exchange_local_cuda(x, t, inverse)
+        torch.cuda.synchronize()
+        assert EX.LAUNCHES[name] == before[name] + 1
+        assert EX.LAUNCH_SHAPES[name, "local", tuple(x.shape)] == shapes + 1
+        assert torch.equal(got, cross_stages_plain(x, t, LocalMesh(D),
+                                                   inverse))
+
+
+@pytest.mark.parametrize("lead,logn,D", EXCHANGE_CASES)
+def test_exchange_received_form_bit_equal_plain(cuda_device, lead, logn, D):
+    """K4 / K5's received form (one stage of one shard against its
+    partner's chunk, int32 as it travels) against exchange_stage_plain,
+    for every shard of every stage."""
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import (_exchange_constants,
+                                                    exchange_stage_plain)
+
+    t, a = exchange_problem(cuda_device, lead, logn, logn + D + 1)
+    mesh = LocalMesh(D)
+    x = mesh.shard(a)
+    pcol = t.p[..., None]
+    launches = 0
+    for s in range(D):
+        own = x[..., s:s + 1, :].contiguous()
+        stages = _exchange_constants(t.n, t.primes, D, (s,), cuda_device)
+        for d, is_u, w, wsh, wi, wish in stages:
+            recv = mesh.ppermute(x, d)[..., s:s + 1, :].contiguous()
+            wire = recv.to(torch.int32)
+            for inverse, tw in ((False, (w, wsh)), (True, (wi, wish))):
+                got = EX.exchange_recv_cuda(own, wire, t, s, d, inverse)
+                launches += 1
+                want = exchange_stage_plain(own, recv, *tw, is_u, pcol,
+                                            inverse)
+                assert torch.equal(got, want), (s, d, inverse)
+    torch.cuda.synchronize()
+    assert launches == D * (D.bit_length() - 1) * 2
+    assert EX.LAUNCH_SHAPES["exchange_fwd", "received",
+                            tuple(own.shape)] >= launches // 2
+
+
+@pytest.mark.parametrize("lead,logn,D", EXCHANGE_CASES)
+def test_sharded_transform_through_the_exchange_kernels(cuda_device, lead,
+                                                        logn, D):
+    """The whole sharded transform on a local mesh of the card (K4 then
+    K1; K2 then K5, one launch each) gives ntt_plain / intt_plain."""
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
+    from hectr_tpu_torch.parallel import LocalMesh
+    from hectr_tpu_torch.parallel.ntt_shard import local_ntt_fns
+
+    t, a = exchange_problem(cuda_device, lead, logn, logn + D + 2)
+    mesh = LocalMesh(D)
+    fwd_fn, inv_fn = local_ntt_fns(t, mesh)
+    before = {**ntt_cuda.LAUNCHES, **EX.LAUNCHES}
+    fwd = mesh.gather(fwd_fn(mesh.shard(a)))
+    inv = mesh.gather(inv_fn(mesh.shard(a)))
+    torch.cuda.synchronize()
+    after = {**ntt_cuda.LAUNCHES, **EX.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {
+        "ntt": 1, "intt": 1, "exchange_fwd": 1, "exchange_inv": 1}
+    assert torch.equal(fwd, T.ntt_plain(a, t))
+    assert torch.equal(inv, T.intt_plain(a, t))
+
+
+def test_exchange_kernels_raise_on_what_they_do_not_take(cuda_device):
+    """A table on the CPU, int32 residues, a D the local form does not
+    take (1, 16), several shards given to the received form, an int64
+    received chunk: each raises before a launch."""
+    from hectr_tpu_torch.ops import ntt_exchange_cuda as EX
+    from hectr_tpu_torch.parallel import LocalMesh
+
+    t, a = exchange_problem(cuda_device, (3,), 10, 0)
+    x = LocalMesh(4).shard(a)
+    t_cpu = T.ntt_tables(t.n, t.primes, CPU)
+    before = dict(EX.LAUNCHES)
+    with pytest.raises(ValueError, match="tables on cpu"):
+        EX.exchange_local_cuda(x, t_cpu)
+    with pytest.raises(TypeError, match="int64"):
+        EX.exchange_local_cuda(x.to(torch.int32), t)
+    with pytest.raises(ValueError, match="D = 2..8"):
+        EX.exchange_local_cuda(LocalMesh(16).shard(a), t)
+    with pytest.raises(ValueError, match="D = 2..8"):
+        EX.exchange_local_cuda(LocalMesh(1).shard(a), t)
+    own = x[..., :1, :].contiguous()
+    wire = own.to(torch.int32)
+    with pytest.raises(ValueError, match="one shard"):
+        EX.exchange_recv_cuda(x, x.to(torch.int32), t, 0, 1)
+    with pytest.raises(TypeError, match="the wire's int32"):
+        EX.exchange_recv_cuda(own, own, t, 0, 1)
+    with pytest.raises(ValueError, match="tables on cpu"):
+        EX.exchange_recv_cuda(own, wire, t_cpu, 0, 1)
+    assert EX.LAUNCHES == before
+
+
 # ---- the batch axis and rings above 2^15 on the card -----------------------
 
 
