@@ -11,7 +11,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      logN 1-15 at 1, 3, 4, 22, 44 and 264 rows (every cluster size the
      wrapper picks), and their times, bounds and shares of the bound at
      the shapes the encrypted loops give them, each bit-equal and timed
-     at every cluster size (hectr_tpu_torch.bench.ntt_kernels)
+     at every cluster size (hectr_tpu_torch.bench.ntt_kernels); the
+     key-switch kernels K6-K8 (base conversion, key inner product,
+     mod-down tail) bit-equal to their plain versions at every case of
+     hectr_tpu_torch.bench.keyswitch_kernels (REFERENCE_HEMPC alone and
+     over 64 loops, FLAGSHIP and FLAGSHIP_QP at the top and an odd level,
+     over 4 loops, MEDIUM, a coefficient rank's columns, a limb shard's
+     rows; stored and compact keys, K7 with and without a Galois
+     permutation), timed there by CUDA-graph replay beside bound and plain
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
@@ -99,9 +106,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      "suite": the bench entry point (hectr_tpu_torch.bench.suite) through
      its main() for ntt_logn15, kernel_parity and compact_key_tradeoff:
      its JSON line names the three, each passed its gate
- 10. each kernel launched on every path that uses it (K1/K2 in phases
-     3, 4, 6-9, "parallel", "batch" and "limb", with their launches by
-     shape; K3 in phase 5; K4/K5 in "parallel"); each
+ 10. each kernel launched on every path that uses it (K1/K2 and K6-K8
+     in phases 3, 4, 6-9, "parallel", "batch" and "limb", with K1/K2's
+     launches by shape; K3 in phase 5; K4/K5 in "parallel"); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
 """
@@ -241,21 +248,56 @@ def phase_kernels(device, kernel_rows):
                 max_abs_err=max_err[rec["kernel"]], ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                 bound_by=rec["bound_by"], library_ms=None)
+    keyswitch_kernels(device, kernel_rows)
+
+
+def keyswitch_kernels(device, kernel_rows):
+    """K6-K8 bit-equal to their plain versions at every case of
+    ``bench.keyswitch_kernels`` (the loops' levels, batches, key layouts,
+    a coefficient rank's columns and a limb shard's rows), then timed
+    there beside their bounds and the plain versions."""
+    from hectr_tpu_torch.bench import keyswitch_kernels as KK
+
+    err = KK.check(device)
+    print(f"[kernels] K6-K8 bit-equal to plain at {len(KK.CASES)} cases "
+          f"({[c.label for c in KK.CASES]}; residues 0 and p - 1 planted; "
+          f"stored and compact keys; K7 with and without a Galois "
+          f"permutation); max |kernel - plain| = {err}", flush=True)
+    for rec in KK.measure(device):
+        plain = (f"plain {rec['plain_ms']:.4f} ms"
+                 if rec["plain_ms"] is not None else "no plain version")
+        print(f"[kernels] {rec['kernel']} {rec['shape']} ({rec['case']}): "
+              f"kernel {rec['ms']:.4f} ms, {plain}, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) = "
+              f"{rec['share_of_bound']:.3f} of it", flush=True)
+        if rec["case"] == KK.HEADLINE and rec["kernel"] in kernel_rows:
+            kernel_rows[rec["kernel"]].update(
+                max_abs_err=err[rec["kernel"]], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=None)
 
 
 def reset_launches() -> None:
-    from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda, ntt_exchange_cuda
+    from hectr_tpu_torch.ops import (keyswitch_cuda, mulmod_cuda, ntt_cuda,
+                                     ntt_exchange_cuda)
 
     ntt_cuda.reset_launches()
     mulmod_cuda.reset_launches()
     ntt_exchange_cuda.reset_launches()
+    keyswitch_cuda.reset_launches()
 
 
 def read_launches() -> dict:
-    from hectr_tpu_torch.ops import mulmod_cuda, ntt_cuda, ntt_exchange_cuda
+    from hectr_tpu_torch.ops import (keyswitch_cuda, mulmod_cuda, ntt_cuda,
+                                     ntt_exchange_cuda)
 
     return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES,
-            **ntt_exchange_cuda.LAUNCHES}
+            **ntt_exchange_cuda.LAUNCHES, **keyswitch_cuda.LAUNCHES}
+
+
+# the launches a loop phase sums: K1/K2 and the key-switch kernels K6-K8
+LOOP_KERNELS = ("ntt", "intt", "base_convert", "key_inner_product",
+                "mod_down_tail")
 
 
 def print_launch_shapes(label: str, per: int, what: str) -> None:
@@ -868,11 +910,12 @@ def phase_batch(device, flagship, card):
     from hectr_tpu_torch.utils import read_traj_bin
 
     model, plant = cli.cstr_setup()
-    total = {"ntt": 0, "intt": 0}
+    total = dict.fromkeys(LOOP_KERNELS, 0)
 
     def tally():
+        launches = read_launches()
         for k in total:
-            total[k] += ntt_cuda.LAUNCHES[k]
+            total[k] += launches[k]
 
     def closed_loop(label, reg, B, bar):
         p = np.stack([cli.disturbance(40) * (1 + b / B) for b in range(B)])
@@ -998,12 +1041,13 @@ def phase_limb(device, flagship, card):
                                       scale=ctx.pair_scale(k)))
     M = np.random.default_rng(81).normal(size=(ctx.slots, ctx.slots)) / 4
     shard_shapes = collections.Counter()
-    total = {"ntt": 0, "intt": 0}
+    total = dict.fromkeys(LOOP_KERNELS, 0)
 
     def tally():
         shard_shapes.update(ntt_cuda.LAUNCH_SHAPES)
+        launches = read_launches()
         for name in total:
-            total[name] += ntt_cuda.LAUNCHES[name]
+            total[name] += launches[name]
 
     # the ops on local limb meshes of 2 and 3, the sharded path alone
     # counted; the single-device references and comparisons follow
@@ -1234,11 +1278,12 @@ def phase_qp(device, card):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
-    total = {"ntt": 0, "intt": 0}
+    total = dict.fromkeys(LOOP_KERNELS, 0)
 
     def tally():
+        launches = read_launches()
         for k in total:
-            total[k] += ntt_cuda.LAUNCHES[k]
+            total[k] += launches[k]
 
     def held_to_mirror(label, x, u, canary, x_m, u_m):
         dev = np.stack([deviations(x[b], u[b], x_m[b], u_m[b])
@@ -1568,19 +1613,21 @@ def main() -> None:
 
     from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
-    from hectr_tpu_torch.ops import (build, mulmod_cuda, ntt_cuda,
-                                     ntt_exchange_cuda)
+    from hectr_tpu_torch.ops import (build, keyswitch_cuda, mulmod_cuda,
+                                     ntt_cuda, ntt_exchange_cuda)
     from hectr_tpu_torch.utils import read_traj_bin
 
     from hectr_tpu_torch.utils.pmu import Timer
 
     timer = Timer()          # each phase's wall time, device synchronized
     with timer.section("build"):
-        sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu")
+        sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu",
+                   "keyswitch.cu")
         libs = build.build(*sources)
         ntt_cuda.library()
         mulmod_cuda.library()
         ntt_exchange_cuda.library()
+        keyswitch_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
           f"{timer.sections['build']:.2f} s", flush=True)
@@ -1603,6 +1650,16 @@ def main() -> None:
         "exchange_inv": {"name": "ntt_exchange_inv", "route": "cuda",
                          "source": "hectr_tpu_torch/csrc/ntt_exchange.cu",
                          "replaces": "hectr_tpu/parallel/ntt_shard.py:137"},
+        # no Pallas kernel either: XLA fuses the JAX package's key switch
+        "base_convert": {"name": "base_convert", "route": "cuda",
+                         "source": "hectr_tpu_torch/csrc/keyswitch.cu",
+                         "replaces": "hectr_tpu/ckks/basecvt.py:134"},
+        "key_inner_product": {"name": "key_inner_product", "route": "cuda",
+                              "source": "hectr_tpu_torch/csrc/keyswitch.cu",
+                              "replaces": "hectr_tpu/ckks/keyswitch.py:281"},
+        "mod_down_tail": {"name": "mod_down_tail", "route": "cuda",
+                          "source": "hectr_tpu_torch/csrc/keyswitch.cu",
+                          "replaces": "hectr_tpu/ckks/keyswitch.py:302"},
     }
     with timer.section("kernels"):
         phase_kernels(device, kernel_rows)
@@ -1654,10 +1711,10 @@ def main() -> None:
              ("flagship-qp", launches_qp),
              ("he", launches_he), ("medium", launches_medium))
     for label, launches in loops:
-        for kname in ("ntt", "intt"):
+        for kname in LOOP_KERNELS:
             check(launches[kname] > 0,
                   f"{kname} kernel never launched in the {label} phase")
-    for kname in ("ntt", "intt"):
+    for kname in LOOP_KERNELS:
         kernel_rows[kname]["launches"] = sum(l[kname] for _, l in loops)
     for kname in ntt_exchange_cuda.LAUNCHES:
         kernel_rows[kname]["launches"] = sum(l.get(kname, 0)

@@ -112,3 +112,59 @@ def exchange_bound(rows: int, limbs: int, logn: int, D: int, form: str,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = mults / mult_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def keyswitch_work(kernel: str, shape, targets: int = 0, key_words: int = 4,
+                   perm: bool = False) -> tuple[int, int]:
+    """(bytes, lazy multiplies) of one launch of the key-switch kernels
+    K6-K8 on an int64 input of `shape`, each input read once (the
+    per-row constants included) and each output written once:
+
+      * "base_convert" (K6): x [..., G, A, C] -> [..., G, targets, C]
+        (G = 1 for the one-group form, ``ckks.basecvt.base_convert``);
+        constants inv, its companion and q [G, A], M and its companion
+        [G, A, targets], Qmod and its companion [G, targets], p
+        [targets]; A + A * targets + targets multiplies a column and
+        group (the float64 correction's A divisions not counted).
+      * "key_inner_product" (K7): digits [..., dnum, R, C], the key
+        [dnum, key_words, R, C] (4: companions stored, 2: compact) read
+        once for every leading row, out [..., 2, R, C], p [R], perm [C]
+        if given; 2 multiplies a digit word.
+      * "mod_down_tail" (K8): acc and ext [..., R, C] -> [..., R, C],
+        P^-1, its companion and p [R]; one multiply an element."""
+    *lead, C = shape
+    n = 1
+    for d in lead:
+        n *= d
+    if kernel == "base_convert":
+        G, A = lead[-2:]
+        outer = n // (G * A)
+        nbytes = (n * C + outer * G * targets * C + 3 * G * A
+                  + 2 * G * A * targets + 2 * G * targets + targets) * 8
+        mults = outer * G * C * (A + A * targets + targets)
+    elif kernel == "key_inner_product":
+        dnum, R = lead[-2:]
+        outer = n // (dnum * R)
+        nbytes = (n * C + dnum * key_words * R * C + outer * 2 * R * C + R
+                  + (C if perm else 0)) * 8
+        mults = 2 * n * C
+    elif kernel == "mod_down_tail":
+        R = lead[-1]
+        nbytes = (3 * n * C + 3 * R) * 8
+        mults = n * C
+    else:
+        raise ValueError(f"kernel {kernel!r}: 'base_convert', "
+                         f"'key_inner_product' or 'mod_down_tail'")
+    return nbytes, mults
+
+
+def keyswitch_bound(kernel: str, shape, mult_peak: float, targets: int = 0,
+                    key_words: int = 4, perm: bool = False
+                    ) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one launch of K6-K8 over
+    ``keyswitch_work``'s bytes and multiplies, with ``ntt_bound``'s
+    conventions."""
+    nbytes, mults = keyswitch_work(kernel, shape, targets, key_words, perm)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mults / mult_peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -12,6 +12,11 @@ right over i): another order can flip v by one, which keeps d correct
 mod every source prime but changes the key-switch noise, and with it
 bit equality.  Residues are int64 [..., g, N] tensors; constants are
 cached per (primes, device).
+
+Dispatch is by the tensor's device, as in ``ckks.ntt``: a CUDA tensor goes
+to the hand-written kernel K6 (``hectr_tpu_torch.ops.keyswitch_cuda``),
+which raises on what it does not take; a CPU tensor to the plain version
+below, the reference the kernel is held to.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ class BaseConvConstants:
     M: torch.Tensor             # [g, t, 1] int64 (Q/q_i) mod p_t
     M_shoup: torch.Tensor       # [g, t, 1] int64 floor(M * 2^32 / p_t)
     Qmod: torch.Tensor          # [t, 1] int64 Q mod p_t
+    Qmod_shoup: torch.Tensor    # [t, 1] int64 floor(Qmod * 2^32 / p_t)
     p: torch.Tensor             # [t, 1] int64 target primes
     mu: torch.Tensor            # [t, 1] int64 Barrett mu
     k: torch.Tensor             # [t, 1] int64 Barrett shift
@@ -83,8 +89,8 @@ def _base_conv_constants(from_primes: tuple[int, ...],
         inv_shoup=i64(shoup(inv, q_col), device),
         q_f64=torch.from_numpy(q_col.astype(np.float64)).to(device),
         M=i64(M, device), M_shoup=i64(M_shoup, device),
-        Qmod=i64(Qmod, device), p=i64(p, device), mu=i64(mu, device),
-        k=i64(k, device))
+        Qmod=i64(Qmod, device), Qmod_shoup=i64(shoup(Qmod, p), device),
+        p=i64(p, device), mu=i64(mu, device), k=i64(k, device))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -103,6 +109,7 @@ class GroupedConvConstants:
     M: torch.Tensor         # [dnum, alpha, t, 1] int64 (Q_j/q_i) mod p_t
     M_shoup: torch.Tensor   # [dnum, alpha, t, 1] int64
     Qmod: torch.Tensor      # [dnum, t, 1] int64 Q_j mod p_t
+    Qmod_shoup: torch.Tensor  # [dnum, t, 1] int64 (K6's correction)
     p: torch.Tensor         # [t, 1] int64
     mu: torch.Tensor
     k: torch.Tensor
@@ -144,8 +151,13 @@ def _grouped_conv_constants(groups: tuple[tuple[int, ...], ...],
         inv=i64(inv, device), inv_shoup=i64(shoup(inv, q_col), device),
         q_f64=torch.from_numpy(q_col.astype(np.float64)).to(device),
         M=i64(M, device), M_shoup=i64(M_shoup, device),
-        Qmod=i64(Qmod, device), p=i64(p, device), mu=i64(mu, device),
-        k=i64(k, device))
+        Qmod=i64(Qmod, device), Qmod_shoup=i64(shoup(Qmod, p), device),
+        p=i64(p, device), mu=i64(mu, device), k=i64(k, device))
+
+
+def _require_cpu(x: torch.Tensor) -> None:
+    if x.device.type != "cpu":
+        raise NotImplementedError(f"no base conversion for device {x.device}")
 
 
 def _correction(y: torch.Tensor, q_f64: torch.Tensor) -> torch.Tensor:
@@ -160,7 +172,19 @@ def _correction(y: torch.Tensor, q_f64: torch.Tensor) -> torch.Tensor:
 def grouped_convert(x: torch.Tensor, c: GroupedConvConstants) -> torch.Tensor:
     """Grouped residues [..., dnum, alpha, N] (dummy rows zero) ->
     centered per-group values' residues over the target chain
-    [..., dnum, t, N]; leading dims are independent rows."""
+    [..., dnum, t, N]; leading dims are independent rows.  K6 for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if x.device.type == "cuda":
+        from hectr_tpu_torch.ops.keyswitch_cuda import base_convert_cuda
+
+        return base_convert_cuda(x.contiguous(), c, grouped=True)
+    _require_cpu(x)
+    return grouped_convert_plain(x, c)
+
+
+def grouped_convert_plain(x: torch.Tensor, c: GroupedConvConstants
+                          ) -> torch.Tensor:
+    """``grouped_convert`` in plain PyTorch ops."""
     y = mul_mod_shoup(x, c.inv, c.inv_shoup, c.q_col)    # [..., dnum, alpha, N]
     v = _correction(y, c.q_f64)                          # [..., dnum, N]
     acc = torch.zeros((*x.shape[:-2], c.t, x.shape[-1]), dtype=torch.int64,
@@ -176,7 +200,19 @@ def grouped_convert(x: torch.Tensor, c: GroupedConvConstants) -> torch.Tensor:
 
 def base_convert(x: torch.Tensor, c: BaseConvConstants) -> torch.Tensor:
     """Residues [..., g, N] over from_primes -> centered-value residues
-    [..., t, N] over to_primes (coefficient domain in and out)."""
+    [..., t, N] over to_primes (coefficient domain in and out).  K6 (its
+    one-group form) for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if x.device.type == "cuda":
+        from hectr_tpu_torch.ops.keyswitch_cuda import base_convert_cuda
+
+        return base_convert_cuda(x.contiguous(), c, grouped=False)
+    _require_cpu(x)
+    return base_convert_plain(x, c)
+
+
+def base_convert_plain(x: torch.Tensor, c: BaseConvConstants) -> torch.Tensor:
+    """``base_convert`` in plain PyTorch ops."""
     y = mul_mod_shoup(x, c.inv, c.inv_shoup, c.q_col)    # [..., g, N]
     v = _correction(y, c.q_f64)                          # [..., N]
     acc = torch.zeros(x.shape[:-2] + (c.t, x.shape[-1]), dtype=torch.int64,

@@ -197,8 +197,8 @@ def _apply_diag(ctx: CKKSContext, d: dict, ct: Ciphertext) -> Ciphertext:
         c0 = ct.data[..., 0, :, :]
         for rot in d["rot"]:
             perm = rot["perm"]
-            ks_ext = _inner_product(ctx, digits.index_select(-1, perm),
-                                    rot["ksk"], k, sliced=True)
+            ks_ext = _inner_product(ctx, digits, rot["ksk"], k, sliced=True,
+                                    perm=perm)
             ks = _mod_down_special(ctx, ks_ext, k)          # [..., 2, k, N]
             c0r = c0.index_select(-1, perm)
             term0 = mul_mod_shoup(add_mod(c0r, ks[..., 0, :, :], t.p),
@@ -258,8 +258,8 @@ def _apply_bsgs(ctx: CKKSContext, b: dict, ct: Ciphertext) -> Ciphertext:
     C = [ct.data]
     for baby in b["baby"]:
         perm = baby["perm"]
-        ks_ext = _inner_product(ctx, digits.index_select(-1, perm),
-                                baby["ksk"], k, sliced=True)
+        ks_ext = _inner_product(ctx, digits, baby["ksk"], k, sliced=True,
+                                perm=perm)
         ks = _mod_down_special(ctx, ks_ext, k)
         C.append(torch.stack([add_mod(c0.index_select(-1, perm),
                                       ks[..., 0, :, :], t.p),

@@ -229,20 +229,44 @@ def decompose_digits(ctx: CKKSContext, c1: torch.Tensor) -> torch.Tensor:
 
 
 def _inner_product(ctx: CKKSContext, digits: torch.Tensor, ksk: torch.Tensor,
-                   k: int, sliced: bool = False) -> torch.Tensor:
+                   k: int, sliced: bool = False,
+                   perm: torch.Tensor | None = None) -> torch.Tensor:
     """sum_j digits[j] * ksk[j] over the extended modulus.  digits
     [..., dnum, k+S, N]; key [dnum, 4, k+S, N] once sliced to this level
     (Shoup products with the stored companions) or [dnum, 2, k+S, N] in
     the compact layout (Barrett products), shared by every leading row;
-    then one sum + Barrett pass over the digit axis -> [..., 2, k+S, N]."""
+    then one sum + Barrett pass over the digit axis -> [..., 2, k+S, N].
+    With `perm` (an evaluation-domain Galois permutation) the digits are
+    taken as ``digits.index_select(-1, perm)``."""
     ksk_l = ksk if sliced else slice_key(ctx, ksk, k)
-    return key_inner_product(digits, ksk_l, ctx.tables_ks(k, digits.device))
+    return key_inner_product(digits, ksk_l, ctx.tables_ks(k, digits.device),
+                             perm)
 
 
-def key_inner_product(digits: torch.Tensor, ksk_l: torch.Tensor,
-                      t) -> torch.Tensor:
+def key_inner_product(digits: torch.Tensor, ksk_l: torch.Tensor, t,
+                      perm: torch.Tensor | None = None) -> torch.Tensor:
     """``_inner_product`` over the rows whose primes `t` holds (p, mu, k
-    columns): digits [..., dnum, R, N], key [dnum, 4 or 2, R, N]."""
+    columns): digits [..., dnum, R, N], key [dnum, 4 or 2, R, N], the
+    digits read through `perm` where given.  K7 for a CUDA tensor (the
+    permutation read inside the kernel), the plain version for a CPU
+    tensor."""
+    if digits.device.type == "cuda":
+        from hectr_tpu_torch.ops.keyswitch_cuda import key_inner_product_cuda
+
+        return key_inner_product_cuda(digits.contiguous(), ksk_l.contiguous(),
+                                      t.p, perm)
+    if digits.device.type != "cpu":
+        raise NotImplementedError(f"no key inner product for device "
+                                  f"{digits.device}")
+    if perm is not None:
+        digits = digits.index_select(-1, perm)
+    return key_inner_product_plain(digits, ksk_l, t)
+
+
+def key_inner_product_plain(digits: torch.Tensor, ksk_l: torch.Tensor,
+                            t) -> torch.Tensor:
+    """``key_inner_product`` without a permutation, in plain PyTorch
+    ops."""
     d = digits.unsqueeze(-3)                              # [..., dnum, 1, R, N]
     if ksk_l.shape[1] == 4:
         prod = mul_mod_shoup(d, ksk_l[:, :2], ksk_l[:, 2:], t.p)
@@ -262,8 +286,33 @@ def _mod_down_special(ctx: CKKSContext, acc: torch.Tensor, k: int) -> torch.Tens
     consts = base_conv_constants(ctx.special_primes, ctx.data_primes[:k],
                                  device)
     ext = ntt(base_convert(last, consts), t)                   # [..., k, N]
-    diff = sub_mod(acc[..., :k, :], ext, t.p)
-    return mul_mod_shoup(diff, pinv, pinv_sh, t.p)
+    return mod_down_tail(acc[..., :k, :], ext, pinv, pinv_sh, t.p)
+
+
+def mod_down_tail(acc_k: torch.Tensor, ext: torch.Tensor, pinv: torch.Tensor,
+                  pinv_sh: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(acc_k - ext) * P^-1 mod p over [..., R, N]: the last pass of the
+    mod-down, with P^-1's Shoup companion; pinv, pinv_sh, p are [R, 1]
+    columns.  K8 for a CUDA tensor (acc_k may be the first rows of the
+    extended result), the plain version for a CPU tensor."""
+    if acc_k.device.type == "cuda":
+        from hectr_tpu_torch.ops.keyswitch_cuda import (lead_stride,
+                                                        mod_down_tail_cuda)
+
+        if lead_stride(acc_k) is None:
+            acc_k = acc_k.contiguous()
+        return mod_down_tail_cuda(acc_k, ext.contiguous(), pinv, pinv_sh, p)
+    if acc_k.device.type != "cpu":
+        raise NotImplementedError(f"no mod-down for device {acc_k.device}")
+    return mod_down_tail_plain(acc_k, ext, pinv, pinv_sh, p)
+
+
+def mod_down_tail_plain(acc_k: torch.Tensor, ext: torch.Tensor,
+                        pinv: torch.Tensor, pinv_sh: torch.Tensor,
+                        p: torch.Tensor) -> torch.Tensor:
+    """``mod_down_tail`` in plain PyTorch ops."""
+    diff = sub_mod(acc_k, ext, p)
+    return mul_mod_shoup(diff, pinv, pinv_sh, p)
 
 
 def key_switch(ctx: CKKSContext, poly: torch.Tensor,

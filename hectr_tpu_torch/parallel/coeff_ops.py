@@ -36,6 +36,7 @@ from hectr_tpu_torch.ckks.keyswitch import (
     _inner_product,
     _ks_constants,
     galois_element,
+    mod_down_tail,
     permutation,
     slice_key,
 )
@@ -167,8 +168,7 @@ class CoeffOps:
         consts = base_conv_constants(ctx.special_primes, ctx.data_primes[:k],
                                      device)
         ext = self._ntt(base_convert(last, consts), t)
-        diff = sub_mod(acc[..., :k, :], ext, t.p)
-        return mul_mod_shoup(diff, pinv, pinv_sh, t.p)
+        return mod_down_tail(acc[..., :k, :], ext, pinv, pinv_sh, t.p)
 
     def rotate(self, ct: Ciphertext, r: int, rot_keys: dict) -> Ciphertext:
         """Left-rotate a coefficient-sharded ciphertext's slots by r,

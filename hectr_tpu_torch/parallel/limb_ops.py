@@ -67,6 +67,7 @@ from hectr_tpu_torch.ckks.keyswitch import (
     _ks_constants,
     galois_element,
     key_inner_product,
+    mod_down_tail,
     permutation,
 )
 from hectr_tpu_torch.ckks.modmath import (
@@ -442,8 +443,8 @@ class LimbOps:
             t = self._tables(primes, device)
             consts = base_conv_constants(ctx.special_primes, primes, device)
             ext = _ntt(base_convert(last, consts), t)
-            diff = sub_mod(x[..., :hi - lo, :], ext, t.p)
-            out.append(mul_mod_shoup(diff, pinv[lo:hi], pinv_sh[lo:hi], t.p))
+            out.append(mod_down_tail(x[..., :hi - lo, :], ext, pinv[lo:hi],
+                                     pinv_sh[lo:hi], t.p))
         return tuple(out)
 
     def _switch(self, digits, keys, k: int) -> tuple:

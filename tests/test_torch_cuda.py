@@ -918,3 +918,136 @@ def test_suite_sections_on_cuda(cuda_device, capsys):
     for r in rec["sections"].values():
         assert r["ok"] is True and r["value"] > 0 and r["unit"] and r["gate"]
     assert rec["sections"]["ntt_logn15"]["launches"]["ntt"] > 0
+
+
+# ---- the key-switch kernels: K6-K8 (ops/keyswitch_cuda.py) ----------------
+
+
+def test_keyswitch_kernels_bit_equal_plain_at_the_smokes_cases(cuda_device):
+    """K6-K8 against their plain versions at every case the smoke holds
+    them at (bench.keyswitch_kernels.CASES), each launched."""
+    from hectr_tpu_torch.bench import keyswitch_kernels as KK
+    from hectr_tpu_torch.ops import keyswitch_cuda as KC
+
+    KC.reset_launches()
+    err = KK.check(cuda_device)
+    assert err == {"base_convert": 0, "key_inner_product": 0,
+                   "mod_down_tail": 0}
+    assert all(n > 0 for n in KC.LAUNCHES.values()), KC.LAUNCHES
+
+
+KS_PATHS = ("key_switch", "rotate", "mul_ct", "mul_ct compact", "diag gemv",
+            "bsgs gemv", "dense gemv", "coefficient mesh rotate",
+            "limb mesh key_switch")
+
+
+@pytest.fixture(scope="module")
+def hybrid_keys():
+    """A FLAGSHIP-shaped chain at logN = 10 (two specials, width-2 digit
+    groups), its keys, rotation keys and relinearisation keys (both
+    layouts) from numpy draws, on the CPU."""
+    ctx = make_context(cfg.CKKSPreset(
+        name="cuda-ks-paths", logn=10, slots=16, scale_bits=50,
+        limb_bits=25, mult_depth=3, special_limbs=2, digit_width=2))
+    keys = S.keygen(ctx, NumpySampler(0), CPU)
+    rk = K.gen_rotation_keys(ctx, keys, NumpySampler(1))
+    relin = {c: K.gen_relin_key(ctx, keys, NumpySampler(2), compact=c)
+             for c in (False, True)}
+    return ctx, keys, rk, relin
+
+
+def _ks_path(name, ctx, keys, rk, relin, device):
+    from hectr_tpu_torch.parallel import LocalMesh, make_mesh
+    from hectr_tpu_torch.parallel.coeff_ops import CoeffOps
+    from hectr_tpu_torch.parallel.limb_ops import LimbOps
+
+    k = ctx.max_limbs
+    rk = {r: key.to(device) for r, key in rk.items()}
+    v = torch.linspace(-1, 1, 16, dtype=torch.float64)
+    pt = S.encode(ctx, (v, torch.zeros_like(v)), k)
+    keys = S.KeySet(sk=keys.sk.to(device), pk=keys.pk.to(device))
+    ct = S.encrypt(ctx, keys, S.Plaintext(pt.data.to(device), pt.scale),
+                   NumpySampler(3))
+    M = np.random.default_rng(4).normal(size=(16, 16)) / 4
+    band = np.where(np.abs(np.subtract.outer(range(16), range(16))) <= 1, M, 0)
+    if name == "key_switch":
+        return K.key_switch(ctx, ct.data[1, :k - 1], rk[3])
+    if name == "rotate":
+        return K.rotate(ctx, ct, 5, rk).data
+    if name.startswith("mul_ct"):
+        return K.mul_ct(ctx, ct, ct, relin[name.endswith("compact")]
+                        .to(device)).data
+    if name == "diag gemv":
+        return G.gemv(ctx, band, ct, rk, method="diag").data
+    if name in ("bsgs gemv", "dense gemv"):
+        m = band if name == "bsgs gemv" else M
+        return G.gemv(ctx, m, ct, {r: rk[r] for r in G.bsgs_rotations(16)},
+                      method="bsgs").data
+    if name == "coefficient mesh rotate":
+        return CoeffOps(ctx, LocalMesh(2)).rotate(ct, 1, rk).data
+    ops = LimbOps(ctx, make_mesh(limb=2, device=device))
+    return torch.cat(ops.key_switch(ops.shard_data(ct.data[1]),
+                                    ops.shard_keys(rk)[1], k), dim=-2)
+
+
+@pytest.mark.parametrize("path", KS_PATHS)
+def test_every_key_switch_path_reaches_k6_k8_and_equals_cpu(
+        cuda_device, monkeypatch, hybrid_keys, path):
+    """Each op that switches keys, on the card, launches K6, K7 and K8 and
+    gives the CPU's residues bit for bit (the gemv diagonals encoded on
+    the CPU for both, as in test_scheme_on_cuda_bit_equal_cpu)."""
+    from hectr_tpu_torch.ops import keyswitch_cuda as KC
+
+    encode_diags = G._encode_diags
+    monkeypatch.setattr(G, "_encode_diags", lambda ctx, D, k, scale, device:
+                        encode_diags(ctx, D, k, scale, CPU).to(device))
+    ctx, keys, rk, relin = hybrid_keys
+    want = _ks_path(path, ctx, keys, rk, relin, CPU)
+    KC.reset_launches()
+    got = _ks_path(path, ctx, keys, rk, relin, cuda_device)
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in KC.LAUNCHES.values()), KC.LAUNCHES
+    assert torch.equal(got.cpu(), want)
+
+
+def test_keyswitch_wrappers_refuse_on_the_card(cuda_device):
+    """int32 residues, mismatched shapes, a tensor left on the CPU and a
+    key's strided view are refused before any launch."""
+    from hectr_tpu_torch.ckks import basecvt as BC
+    from hectr_tpu_torch.ops import keyswitch_cuda as KC
+
+    ctx = make_context(cfg.FLAGSHIP)
+    k, dev = ctx.max_limbs, cuda_device
+    t = ctx.tables_ks(k, dev)
+    gc = BC.grouped_conv_constants(ctx.digit_groups(k), t.primes, dev)
+    n, R, dnum = 1 << 15, len(t.primes), ctx.dnum(k)
+    x = residues(ctx.data_primes[:k], (k, n), 0).to(dev).unflatten(
+        -2, (dnum, ctx.alpha))
+    digits = residues(t.primes, (dnum, R, n), 1).to(dev)
+    key = residues(t.primes, (dnum, 4, R, n), 2).to(dev)
+    acc = residues(t.primes, (2, R, n), 3).to(dev)
+    ext = acc[:, :k].contiguous()
+    pinv, pinv_sh = K._ks_constants(ctx, k, dev)
+    p = ctx.tables(k, dev).p
+    before = dict(KC.LAUNCHES)
+    bad = [
+        (lambda: KC.base_convert_cuda(x.int(), gc, True), TypeError),
+        (lambda: KC.base_convert_cuda(x[:, :1].contiguous(), gc, True),
+         ValueError),
+        (lambda: KC.key_inner_product_cuda(digits, key.cpu(), t.p),
+         ValueError),
+        (lambda: KC.key_inner_product_cuda(digits[:-1], key, t.p),
+         ValueError),
+        (lambda: KC.key_inner_product_cuda(digits, key[:, :3], t.p),
+         ValueError),
+        (lambda: KC.mod_down_tail_cuda(acc[:, :k], ext.int(), pinv, pinv_sh,
+                                       p), TypeError),
+        (lambda: KC.mod_down_tail_cuda(acc, ext, pinv, pinv_sh, p),
+         ValueError),
+        (lambda: KC.mod_down_tail_cuda(acc[:, :k], ext, pinv.cpu(), pinv_sh,
+                                       p), ValueError),
+    ]
+    for call, err in bad:
+        with pytest.raises(err):
+            call()
+    assert KC.LAUNCHES == before
