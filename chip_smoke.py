@@ -18,7 +18,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      over 64 loops, FLAGSHIP and FLAGSHIP_QP at the top and an odd level,
      over 4 loops, MEDIUM, a coefficient rank's columns, a limb shard's
      rows; stored and compact keys, K7 with and without a Galois
-     permutation), timed there by CUDA-graph replay beside bound and plain
+     permutation; K6's mod-down and rescale forms), timed there by
+     CUDA-graph replay beside bound and plain; the scheme ops' kernels K9
+     (every primitive of ckks/modmath.py at FLAGSHIP's [2, 22, 2^15] and
+     the FLAGSHIP_QP batch [4, 2, 32, 2^15], broadcast and non-contiguous
+     operands, the permuted form, every int64 word random) and K10 (the
+     BSGS group sum at FLAGSHIP n1 = 4, over 4 loops and at MEDIUM's
+     n1 = 91) bit-equal to their plain versions, timed beside bound and
+     plain (hectr_tpu_torch.bench.rns_kernels), and the wrapper's host
+     time per K9 call beside the plain composition's and its aten launches
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
@@ -106,9 +114,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      "suite": the bench entry point (hectr_tpu_torch.bench.suite) through
      its main() for ntt_logn15, kernel_parity and compact_key_tradeoff:
      its JSON line names the three, each passed its gate
- 10. each kernel launched on every path that uses it (K1/K2 and K6-K8
-     in phases 3, 4, 6-9, "parallel", "batch" and "limb", with K1/K2's
-     launches by shape; K3 in phase 5; K4/K5 in "parallel"); each
+ 10. each kernel launched on every path that uses it (K1/K2, K6-K8 and
+     K9/K10 in phases 3, 4, 6-9, "parallel", "batch" and "limb", with
+     K1/K2's launches by shape and K9's by primitive; K3 in phase 5;
+     K4/K5 in "parallel"); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
 """
@@ -249,6 +258,7 @@ def phase_kernels(device, kernel_rows):
                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                 bound_by=rec["bound_by"], library_ms=None)
     keyswitch_kernels(device, kernel_rows)
+    rns_kernels(device, kernel_rows)
 
 
 def keyswitch_kernels(device, kernel_rows):
@@ -277,27 +287,74 @@ def keyswitch_kernels(device, kernel_rows):
                 bound_by=rec["bound_by"], library_ms=None)
 
 
+def rns_kernels(device, kernel_rows):
+    """K9/K10 bit-equal to their plain versions at every case of
+    ``bench.rns_kernels``, timed there beside their bounds and the plain
+    versions, and K9's host time per call."""
+    from hectr_tpu_torch.bench import rns_kernels as RK
+
+    err = RK.check(device)
+    print(f"[kernels] K9 (every primitive) and K10 bit-equal to plain at "
+          f"every case of bench.rns_kernels (FLAGSHIP [2, 22, 2^15], the "
+          f"FLAGSHIP_QP batch [4, 2, 32, 2^15], broadcast and non-contiguous "
+          f"operands, the permuted form, random int64 words; K10 at n1 = 4, "
+          f"4 loops x n1 = 4, MEDIUM n1 = 91); max |kernel - plain| = {err}",
+          flush=True)
+    for rec in RK.measure(device):
+        print(f"[kernels] {rec['kernel']} ({rec['case']}): kernel "
+              f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}) = "
+              f"{rec['share_of_bound']:.3f} of it", flush=True)
+        row = ("rns_map" if (rec["case"], rec["kernel"]) == RK.HEADLINE
+               else "mod_product_sum" if rec["case"] == RK.SUM_HEADLINE
+               else None)
+        if row is not None:
+            kernel_rows[row].update(
+                max_abs_err=err[row], ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                library_ms=None)
+    for rec in RK.host_costs(device):
+        print(f"[kernels] K9 {rec['kernel']} host time per call "
+              f"{rec['host_us']:.2f} us through ckks.modmath; the plain "
+              f"composition {rec['plain_host_us']:.2f} us for its "
+              f"{rec['plain_aten_launches']} aten launches", flush=True)
+
+
 def reset_launches() -> None:
     from hectr_tpu_torch.ops import (keyswitch_cuda, mulmod_cuda, ntt_cuda,
-                                     ntt_exchange_cuda)
+                                     ntt_exchange_cuda, rns_cuda)
 
     ntt_cuda.reset_launches()
     mulmod_cuda.reset_launches()
     ntt_exchange_cuda.reset_launches()
     keyswitch_cuda.reset_launches()
+    rns_cuda.reset_launches()
 
 
 def read_launches() -> dict:
     from hectr_tpu_torch.ops import (keyswitch_cuda, mulmod_cuda, ntt_cuda,
-                                     ntt_exchange_cuda)
+                                     ntt_exchange_cuda, rns_cuda)
 
     return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES,
-            **ntt_exchange_cuda.LAUNCHES, **keyswitch_cuda.LAUNCHES}
+            **ntt_exchange_cuda.LAUNCHES, **keyswitch_cuda.LAUNCHES,
+            **rns_cuda.LAUNCHES}
 
 
-# the launches a loop phase sums: K1/K2 and the key-switch kernels K6-K8
+# the launches a loop phase sums: K1/K2, the key-switch kernels K6-K8 and
+# the scheme ops' kernels K9/K10
 LOOP_KERNELS = ("ntt", "intt", "base_convert", "key_inner_product",
-                "mod_down_tail")
+                "mod_down_tail", "rns_map", "mod_product_sum")
+
+
+def print_rns_launches(label: str, per: int, what: str) -> None:
+    """K9's launches since the last reset by primitive, divided by `per`
+    (the phase's steps)."""
+    from hectr_tpu_torch.ops import rns_cuda
+
+    ops = {op: round(n / per, 3) for op, n in sorted(
+        rns_cuda.OP_LAUNCHES.items())}
+    print(f"[{label}] K9 launches per {what} by primitive: {json.dumps(ops)};"
+          f" K10 {rns_cuda.LAUNCHES['mod_product_sum'] / per:g}", flush=True)
 
 
 def print_launch_shapes(label: str, per: int, what: str) -> None:
@@ -333,6 +390,7 @@ def run_loop(label, preset, rotations, device, card):
     t_loop = time.perf_counter() - t0
     launches = read_launches()
     print_launch_shapes(label, 40, "step")
+    print_rns_launches(label, 40, "step")
 
     check(x.shape == (41, 3) and u.shape == (40, 2), f"{label}: shapes")
     check(bool(np.isfinite(x).all() and np.isfinite(u).all()),
@@ -421,6 +479,7 @@ def phase_fused(device, flagship, card):
     t_loop = time.perf_counter() - t0
     launches = read_launches()
     print_launch_shapes("fused", 40, "step")
+    print_rns_launches("fused", 40, "step")
     canary = float(canary)
     check(x.shape == (41, 3) and u.shape == (40, 2)
           and bool(np.isfinite(x).all() and np.isfinite(u).all()),
@@ -507,6 +566,7 @@ def phase_parallel(device, flagship, card, kernel_rows):
     t_sharded = time.perf_counter() - t0
     launches = read_launches()
     print_launch_shapes("parallel", 1, "phase")
+    print_rns_launches("parallel", 1, "phase")
     exchange_shapes = collections.Counter(EX.LAUNCH_SHAPES)
     print_exchange_shapes("parallel", exchange_shapes)
 
@@ -1614,7 +1674,7 @@ def main() -> None:
     from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
     from hectr_tpu_torch.ops import (build, keyswitch_cuda, mulmod_cuda,
-                                     ntt_cuda, ntt_exchange_cuda)
+                                     ntt_cuda, ntt_exchange_cuda, rns_cuda)
     from hectr_tpu_torch.utils import read_traj_bin
 
     from hectr_tpu_torch.utils.pmu import Timer
@@ -1622,12 +1682,13 @@ def main() -> None:
     timer = Timer()          # each phase's wall time, device synchronized
     with timer.section("build"):
         sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu",
-                   "keyswitch.cu")
+                   "keyswitch.cu", "rns_ops.cu")
         libs = build.build(*sources)
         ntt_cuda.library()
         mulmod_cuda.library()
         ntt_exchange_cuda.library()
         keyswitch_cuda.library()
+        rns_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
           f"{timer.sections['build']:.2f} s", flush=True)
@@ -1660,6 +1721,13 @@ def main() -> None:
         "mod_down_tail": {"name": "mod_down_tail", "route": "cuda",
                           "source": "hectr_tpu_torch/csrc/keyswitch.cu",
                           "replaces": "hectr_tpu/ckks/keyswitch.py:302"},
+        # nor here: XLA fuses the scheme ops' modular arithmetic
+        "rns_map": {"name": "rns_map", "route": "cuda",
+                    "source": "hectr_tpu_torch/csrc/rns_ops.cu",
+                    "replaces": "hectr_tpu/ckks/modmath.py:85"},
+        "mod_product_sum": {"name": "mod_product_sum", "route": "cuda",
+                            "source": "hectr_tpu_torch/csrc/rns_ops.cu",
+                            "replaces": "hectr_tpu/ckks/gemv.py:430"},
     }
     with timer.section("kernels"):
         phase_kernels(device, kernel_rows)

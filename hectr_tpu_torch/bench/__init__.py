@@ -168,3 +168,50 @@ def keyswitch_bound(kernel: str, shape, mult_peak: float, targets: int = 0,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = mults / mult_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# 64-bit multiplies a K9 primitive does per output word, as its formulas
+# (ckks/modmath.py) write them: Barrett a*b, (.)*mu, q*p; Shoup a*w',
+# a*w, q*p.  K10 does mul_mod's three per product and Barrett's two per
+# output word.  A 64-bit multiply is three 32-bit IMADs (IMAD.WIDE.U32 and
+# two IMADs for the cross terms).
+RNS_MULTIPLIES = {"add_mod": 0, "sub_mod": 0, "neg_mod": 0, "mul_mod": 3,
+                  "mul_add_mod": 3, "mul_mod_shoup": 3,
+                  "mul_mod_shoup_wide": 3, "mul_mod_shoup_lazy": 3}
+IMAD_PER_MUL64 = 3
+
+
+def imad_peak_per_s() -> float:
+    """32-bit integer multiply(-add)s per second at the card's peak: SMs x
+    64 IMADs per clock x the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * IMAD_PER_CLOCK_PER_SM * max_sm_clock_hz()
+
+
+def rns_work(op: str, in_numels, out_numel: int, products: int = 0
+             ) -> tuple[int, int]:
+    """(bytes, IMADs) of one launch of K9 (op a key of RNS_MULTIPLIES) or
+    K10 (op "mod_product_sum") over int64 operands of `in_numels`
+    elements each (an operand's own elements: a broadcast column or a
+    shared plaintext is read once) and an output of `out_numel`: each
+    input read once, the output written once.  K10's `products` is the
+    number of products it sums (output words x the summed dimension)."""
+    nbytes = 8 * (sum(in_numels) + out_numel)
+    if op == "mod_product_sum":
+        mults = 3 * products + 2 * out_numel
+    elif op in RNS_MULTIPLIES:
+        mults = RNS_MULTIPLIES[op] * out_numel
+    else:
+        raise ValueError(f"op {op!r}: a K9 primitive or 'mod_product_sum'")
+    return nbytes, IMAD_PER_MUL64 * mults
+
+
+def rns_bound(op: str, in_numels, out_numel: int, imad_peak: float,
+              products: int = 0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one launch of K9 or K10
+    over ``rns_work``'s bytes and IMADs, with ``ntt_bound``'s
+    conventions (IMADs at `imad_peak` per second)."""
+    nbytes, imads = rns_work(op, in_numels, out_numel, products)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / imad_peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -108,6 +108,10 @@ def inputs(case: Case, device, gen) -> dict:
     # K6, mod-down: both components' special rows to the data rows
     last = _residues(ctx.special_primes, lead + (2,), n, gen, device)
     bc = BC.base_conv_constants(ctx.special_primes, data, device)
+    # K6, rescale: both components' last data row to the rows below it
+    top = _residues(ctx.data_primes[k - 1:k], lead + (2,), n, gen, device)
+    rc = BC.base_conv_constants(ctx.data_primes[k - 1:k],
+                                ctx.data_primes[:k - 1], device)
     # K7: the digits and a random key over this case's rows
     R = len(data) + len(special)
     t = ntt_tables(ctx.n, data + special, device)
@@ -133,6 +137,10 @@ def inputs(case: Case, device, gen) -> dict:
             lambda: BC.base_convert(last, bc),
             lambda: BC.base_convert_plain(last, bc),
             dict(shape=tuple(last.shape[:-2]) + (1, S, n), targets=len(data))),
+        "base_convert rescale": (
+            lambda: BC.base_convert(top, rc),
+            lambda: BC.base_convert_plain(top, rc),
+            dict(shape=tuple(top.shape[:-2]) + (1, 1, n), targets=k - 1)),
         "key_inner_product": (
             lambda: K.key_inner_product(digits, key, t),
             lambda: K.key_inner_product_plain(digits, key, t),

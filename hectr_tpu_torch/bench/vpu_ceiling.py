@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from hectr_tpu_torch.bench import cuda_time_ms
-from hectr_tpu_torch.ckks.modmath import mul_mod_shoup_lazy
+from hectr_tpu_torch.ckks.modmath import mul_mod_shoup_lazy_plain
 from hectr_tpu_torch.ckks.ntt import u32_as_i32
 from hectr_tpu_torch.ckks.primes import find_ntt_primes
 
@@ -91,7 +91,7 @@ def chain_plain(x: torch.Tensor, c: LaneConstants, r: int) -> torch.Tensor:
     """r dependent lazy Shoup multiplies per element in plain int64
     PyTorch: x [rows, lanes] below 2^31 -> [rows, lanes] in [0, 2p)."""
     for _ in range(r):
-        x = mul_mod_shoup_lazy(x, c.w, c.w_shoup, c.pv)
+        x = mul_mod_shoup_lazy_plain(x, c.w, c.w_shoup, c.pv)
     return x
 
 

@@ -28,14 +28,14 @@ import numpy as np
 import torch
 
 from hectr_tpu_torch.ckks.modmath import (
-    add_mod,
+    add_mod_plain,
     barrett_constants,
     i64,
-    mul_mod,
-    mul_mod_shoup,
-    mul_mod_shoup_wide,
+    mul_mod_plain,
+    mul_mod_shoup_plain,
+    mul_mod_shoup_wide_plain,
     shoup,
-    sub_mod,
+    sub_mod_plain,
 )
 from hectr_tpu_torch.config import resolve_device
 
@@ -185,17 +185,17 @@ def grouped_convert(x: torch.Tensor, c: GroupedConvConstants) -> torch.Tensor:
 def grouped_convert_plain(x: torch.Tensor, c: GroupedConvConstants
                           ) -> torch.Tensor:
     """``grouped_convert`` in plain PyTorch ops."""
-    y = mul_mod_shoup(x, c.inv, c.inv_shoup, c.q_col)    # [..., dnum, alpha, N]
+    y = mul_mod_shoup_plain(x, c.inv, c.inv_shoup, c.q_col)  # [.., dnum, alpha, N]
     v = _correction(y, c.q_f64)                          # [..., dnum, N]
     acc = torch.zeros((*x.shape[:-2], c.t, x.shape[-1]), dtype=torch.int64,
                       device=x.device)
     for i in range(c.alpha):
         # y_i is a residue of q_i, NOT reduced mod p_t: wide Shoup
-        term = mul_mod_shoup_wide(y[..., i, None, :], c.M[:, i],
-                                  c.M_shoup[:, i], c.p)  # [..., dnum, t, N]
-        acc = add_mod(acc, term, c.p)
-    corr = mul_mod(v[..., None, :], c.Qmod, c.p, c.mu, c.k)
-    return sub_mod(acc, corr, c.p)
+        term = mul_mod_shoup_wide_plain(y[..., i, None, :], c.M[:, i],
+                                        c.M_shoup[:, i], c.p)  # [.., dnum, t, N]
+        acc = add_mod_plain(acc, term, c.p)
+    corr = mul_mod_plain(v[..., None, :], c.Qmod, c.p, c.mu, c.k)
+    return sub_mod_plain(acc, corr, c.p)
 
 
 def base_convert(x: torch.Tensor, c: BaseConvConstants) -> torch.Tensor:
@@ -213,13 +213,13 @@ def base_convert(x: torch.Tensor, c: BaseConvConstants) -> torch.Tensor:
 
 def base_convert_plain(x: torch.Tensor, c: BaseConvConstants) -> torch.Tensor:
     """``base_convert`` in plain PyTorch ops."""
-    y = mul_mod_shoup(x, c.inv, c.inv_shoup, c.q_col)    # [..., g, N]
+    y = mul_mod_shoup_plain(x, c.inv, c.inv_shoup, c.q_col)  # [..., g, N]
     v = _correction(y, c.q_f64)                          # [..., N]
     acc = torch.zeros(x.shape[:-2] + (c.t, x.shape[-1]), dtype=torch.int64,
                       device=x.device)
     for i in range(c.g):
-        term = mul_mod_shoup_wide(y[..., i:i + 1, :], c.M[i], c.M_shoup[i],
-                                  c.p)                   # [..., t, N]
-        acc = add_mod(acc, term, c.p)
-    corr = mul_mod(v[..., None, :], c.Qmod, c.p, c.mu, c.k)
-    return sub_mod(acc, corr, c.p)
+        term = mul_mod_shoup_wide_plain(y[..., i:i + 1, :], c.M[i],
+                                        c.M_shoup[i], c.p)   # [..., t, N]
+        acc = add_mod_plain(acc, term, c.p)
+    corr = mul_mod_plain(v[..., None, :], c.Qmod, c.p, c.mu, c.k)
+    return sub_mod_plain(acc, corr, c.p)

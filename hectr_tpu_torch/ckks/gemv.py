@@ -33,19 +33,8 @@ from hectr_tpu_torch.ckks.keyswitch import (
     permutation,
     slice_key,
 )
-from hectr_tpu_torch.ckks.modmath import (
-    add_mod,
-    mul_mod,
-    mul_mod_shoup,
-    sum_mod,
-)
-from hectr_tpu_torch.ckks.scheme import (
-    Ciphertext,
-    Plaintext,
-    encode,
-    mul_pt,
-    rescale_pair,
-)
+from hectr_tpu_torch.ckks.modmath import add_mod, add_mod_perm, mod_product_sum
+from hectr_tpu_torch.ckks.scheme import Ciphertext, encode, rescale_pair
 from hectr_tpu_torch.config import resolve_device
 
 
@@ -120,12 +109,6 @@ def _encode_diags(ctx: CKKSContext, D: np.ndarray, k: int, scale,
     return encode(ctx, v, k, scale).data
 
 
-def _pt_shoup(pt: torch.Tensor, k: int, ctx: CKKSContext) -> torch.Tensor:
-    """Shoup companions floor(pt * 2^32 / p) of a static plaintext."""
-    return torch.div(pt << 32, ctx.primes_col(k, pt.device),
-                     rounding_mode="floor")
-
-
 def gemv_materials(ctx: CKKSContext, M: np.ndarray, k: int, rot_keys: dict,
                    device, method: str = "auto") -> dict:
     """The static operands of an encrypted gemv with matrix M at k
@@ -179,19 +162,31 @@ def _materials_diag(ctx, diags, active, k, rot_keys, device) -> dict:
             "perm": permutation(ctx.n, galois_element(r, ctx.n), device),
             "ksk": slice_key(ctx, rot_keys[r], k),
             "pt": pt,
-            "pt_sh": _pt_shoup(pt, k, ctx),
         })
     return {"k": k, "diag": d}
 
 
 def _apply_diag(ctx: CKKSContext, d: dict, ct: Ciphertext) -> Ciphertext:
+    """sum_r T_r * pt_r over the nonzero diagonals r (T_0 = ct, T_r =
+    rot_r(ct) from the hoisted digits): the group sum of the BSGS method,
+    one K10 pass for every n1 terms on the card, so at most n1 rotated
+    ciphertexts are held at once."""
     k = ct.limbs
     pair = ctx.pair_scale(k)
     t = ctx.tables(k, ct.data.device)
+    n1, _ = bsgs_split(ctx.slots)
+    acc, terms, pts = None, [], []
+
+    def fold(acc):
+        s = mod_product_sum(torch.stack(terms, dim=-4),
+                            torch.stack(pts)[:, None], -4, t.p, t.mu, t.k)
+        terms.clear()
+        pts.clear()
+        return s if acc is None else add_mod(acc, s, t.p)
+
     if "pt0" in d:
-        acc = mul_pt(ctx, ct, Plaintext(data=d["pt0"], scale=pair)).data
-    else:
-        acc = torch.zeros_like(ct.data)
+        terms.append(ct.data)
+        pts.append(d["pt0"])
     if d["rot"]:
         digits = decompose_digits(ctx, ct.data[..., 1, :, :])   # hoisted
         c0 = ct.data[..., 0, :, :]
@@ -200,12 +195,16 @@ def _apply_diag(ctx: CKKSContext, d: dict, ct: Ciphertext) -> Ciphertext:
             ks_ext = _inner_product(ctx, digits, rot["ksk"], k, sliced=True,
                                     perm=perm)
             ks = _mod_down_special(ctx, ks_ext, k)          # [..., 2, k, N]
-            c0r = c0.index_select(-1, perm)
-            term0 = mul_mod_shoup(add_mod(c0r, ks[..., 0, :, :], t.p),
-                                  rot["pt"], rot["pt_sh"], t.p)
-            term1 = mul_mod_shoup(ks[..., 1, :, :], rot["pt"], rot["pt_sh"],
-                                  t.p)
-            acc = add_mod(acc, torch.stack([term0, term1], dim=-3), t.p)
+            terms.append(torch.stack([add_mod_perm(c0, perm, ks[..., 0, :, :],
+                                                   t.p),
+                                      ks[..., 1, :, :]], dim=-3))
+            pts.append(rot["pt"])
+            if len(terms) == n1:
+                acc = fold(acc)
+    if terms:
+        acc = fold(acc)
+    if acc is None:
+        acc = torch.zeros_like(ct.data)
     return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))
 
 
@@ -261,26 +260,23 @@ def _apply_bsgs(ctx: CKKSContext, b: dict, ct: Ciphertext) -> Ciphertext:
         ks_ext = _inner_product(ctx, digits, baby["ksk"], k, sliced=True,
                                 perm=perm)
         ks = _mod_down_special(ctx, ks_ext, k)
-        C.append(torch.stack([add_mod(c0.index_select(-1, perm),
-                                      ks[..., 0, :, :], t.p),
+        C.append(torch.stack([add_mod_perm(c0, perm, ks[..., 0, :, :], t.p),
                               ks[..., 1, :, :]], dim=-3))
     C = torch.stack(C, dim=-4)                              # [..., n1, 2, k, N]
 
     def group_sum(ptg):
         # sum_b C[b] * ptg[b]: reduced products, one sum + Barrett over
-        # the baby axis
-        prod = mul_mod(C, ptg[:, None], t.p, t.mu, t.k)     # [..., n1, 2, k, N]
-        return sum_mod(prod, -4, t.p, t.mu, t.k)            # [..., 2, k, N]
+        # the baby axis, in one pass (K10) on the card
+        return mod_product_sum(C, ptg[:, None], -4, t.p, t.mu, t.k)
 
     acc = group_sum(b["pt0"]) if "pt0" in b else torch.zeros_like(ct.data)
     for giant in b["giant"]:
         w = group_sum(giant["pt"])
         perm = giant["perm"]
-        w0 = w[..., 0, :, :].index_select(-1, perm)
         w1 = w[..., 1, :, :].index_select(-1, perm)
         dig = decompose_digits(ctx, w1)
         ks_ext = _inner_product(ctx, dig, giant["ksk"], k, sliced=True)
         ks = _mod_down_special(ctx, ks_ext, k)
-        acc = add_mod(acc, torch.stack([add_mod(w0, ks[..., 0, :, :], t.p),
-                                        ks[..., 1, :, :]], dim=-3), t.p)
+        w0 = add_mod_perm(w[..., 0, :, :], perm, ks[..., 0, :, :], t.p)
+        acc = add_mod(acc, torch.stack([w0, ks[..., 1, :, :]], dim=-3), t.p)
     return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))

@@ -37,11 +37,15 @@ from hectr_tpu_torch.ckks.basecvt import (
 from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.modmath import (
     add_mod,
+    add_mod_perm,
     i64,
+    mul_add_mod,
     mul_mod,
-    mul_mod_shoup,
+    mul_mod_plain,
+    mul_mod_shoup_plain,
     shoup,
     sub_mod,
+    sub_mod_plain,
     sum_mod,
 )
 from hectr_tpu_torch.ckks.ntt import bit_reverse_indices, intt, ntt
@@ -269,9 +273,9 @@ def key_inner_product_plain(digits: torch.Tensor, ksk_l: torch.Tensor,
     ops."""
     d = digits.unsqueeze(-3)                              # [..., dnum, 1, R, N]
     if ksk_l.shape[1] == 4:
-        prod = mul_mod_shoup(d, ksk_l[:, :2], ksk_l[:, 2:], t.p)
+        prod = mul_mod_shoup_plain(d, ksk_l[:, :2], ksk_l[:, 2:], t.p)
     else:
-        prod = mul_mod(d, ksk_l, t.p, t.mu, t.k)
+        prod = mul_mod_plain(d, ksk_l, t.p, t.mu, t.k)
     return sum_mod(prod, -4, t.p, t.mu, t.k)
 
 
@@ -311,8 +315,8 @@ def mod_down_tail_plain(acc_k: torch.Tensor, ext: torch.Tensor,
                         pinv: torch.Tensor, pinv_sh: torch.Tensor,
                         p: torch.Tensor) -> torch.Tensor:
     """``mod_down_tail`` in plain PyTorch ops."""
-    diff = sub_mod(acc_k, ext, p)
-    return mul_mod_shoup(diff, pinv, pinv_sh, p)
+    diff = sub_mod_plain(acc_k, ext, p)
+    return mul_mod_shoup_plain(diff, pinv, pinv_sh, p)
 
 
 def key_switch(ctx: CKKSContext, poly: torch.Tensor,
@@ -333,12 +337,11 @@ def rotate(ctx: CKKSContext, ct: Ciphertext, r: int,
         return ct
     device = ct.data.device
     perm = permutation(ctx.n, galois_element(r, ctx.n), device)
-    c0r = apply_automorphism(ct.data[..., 0, :, :], perm)
     c1r = apply_automorphism(ct.data[..., 1, :, :], perm)
     ks = key_switch(ctx, c1r, rot_keys[r])
     t = ctx.tables(ct.limbs, device)
-    return Ciphertext(data=torch.stack([add_mod(c0r, ks[..., 0, :, :], t.p),
-                                        ks[..., 1, :, :]], dim=-3),
+    c0 = add_mod_perm(ct.data[..., 0, :, :], perm, ks[..., 0, :, :], t.p)
+    return Ciphertext(data=torch.stack([c0, ks[..., 1, :, :]], dim=-3),
                       scale=ct.scale)
 
 
@@ -352,12 +355,12 @@ def mul_ct(ctx: CKKSContext, a: Ciphertext, b: Ciphertext,
     t = ctx.tables(a.limbs, a.data.device)
     a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
     b0, b1 = b.data[..., 0, :, :], b.data[..., 1, :, :]
-    d0 = mul_mod(a0, b0, t.p, t.mu, t.k)
-    d1 = add_mod(mul_mod(a0, b1, t.p, t.mu, t.k),
-                 mul_mod(a1, b0, t.p, t.mu, t.k), t.p)
+    # d0 = a0 b0, d1 = a0 b1 + a1 b0, d2 = a1 b1; d0 and d1 are each added
+    # to their half of the switched d2 by a fused multiply-add
     d2 = mul_mod(a1, b1, t.p, t.mu, t.k)
     ks = key_switch(ctx, d2, relin_key)
-    return Ciphertext(data=torch.stack([add_mod(d0, ks[..., 0, :, :], t.p),
-                                        add_mod(d1, ks[..., 1, :, :], t.p)],
-                                       dim=-3),
+    d1 = mul_add_mod(a1, b0, mul_mod(a0, b1, t.p, t.mu, t.k), t.p, t.mu, t.k)
+    return Ciphertext(data=torch.stack(
+        [mul_add_mod(a0, b0, ks[..., 0, :, :], t.p, t.mu, t.k),
+         add_mod(d1, ks[..., 1, :, :], t.p)], dim=-3),
                       scale=a.scale * b.scale)

@@ -15,12 +15,23 @@ stays exact in signed int64 and no wrapping-u32 trick is needed:
 
 Residues are int64 tensors of shape [..., L, N]; per-limb constants are
 int64 tensors [L, 1] on the same device.
+
+Dispatch is by the operands' device, as in ``ckks.ntt``: on a CUDA device
+each primitive is one launch of the hand-written kernel K9 and the group
+sum ``mod_product_sum`` one pass of K10 (``hectr_tpu_torch.ops.rns_cuda``),
+which raise on what they do not take; on the CPU each runs its plain
+version, ``<name>_plain`` beside it, the reference the kernels are held
+to.  The plain versions of the other kernels (``ntt_plain``,
+``grouped_convert_plain``, ...) call the ``_plain`` primitives, so they
+stay plain PyTorch on the card too.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from hectr_tpu_torch.ops import rns_cuda
 
 
 def barrett_constants(primes: list[int]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -52,20 +63,72 @@ def i64(a, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
 
 
+def _on_card(*operands) -> bool:
+    """Where a primitive runs: True for operands on a CUDA device (the
+    kernels K9/K10, ``hectr_tpu_torch.ops.rns_cuda``, which raise on what
+    they do not take), False on the CPU (the plain versions); any other
+    device raises.  The first tensor operand decides."""
+    for x in operands:
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                return True
+            if x.is_cpu:
+                return False
+            raise NotImplementedError(f"no modular arithmetic for device "
+                                      f"{x.device}")
+    return False
+
+
 def add_mod(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p elementwise; a, b already reduced."""
+    if _on_card(a, b):
+        return rns_cuda.rns_map("add_mod", a, b, p)
+    return add_mod_plain(a, b, p)
+
+
+def add_mod_plain(a, b, p):
+    """``add_mod`` in plain PyTorch ops."""
     s = a + b
     return torch.where(s >= p, s - p, s)
 
 
+def add_mod_perm(a: torch.Tensor, perm: torch.Tensor, b: torch.Tensor,
+                 p: torch.Tensor) -> torch.Tensor:
+    """add_mod(a.index_select(-1, perm), b, p): a's columns taken through
+    the permutation `perm` (int64 [N]; an evaluation-domain Galois
+    automorphism), read in place by K9 on the card."""
+    if _on_card(a, b):
+        return rns_cuda.rns_map("add_mod", a, b, p, perm=perm)
+    return add_mod_perm_plain(a, perm, b, p)
+
+
+def add_mod_perm_plain(a, perm, b, p):
+    """``add_mod_perm`` in plain PyTorch ops."""
+    return add_mod_plain(a.index_select(-1, perm), b, p)
+
+
 def sub_mod(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p elementwise; a, b already reduced."""
+    if _on_card(a, b):
+        return rns_cuda.rns_map("sub_mod", a, b, p)
+    return sub_mod_plain(a, b, p)
+
+
+def sub_mod_plain(a, b, p):
+    """``sub_mod`` in plain PyTorch ops."""
     d = a + p - b
     return torch.where(d >= p, d - p, d)
 
 
 def neg_mod(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """(-a) mod p elementwise."""
+    if _on_card(a):
+        return rns_cuda.rns_map("neg_mod", a, p)
+    return neg_mod_plain(a, p)
+
+
+def neg_mod_plain(a, p):
+    """``neg_mod`` in plain PyTorch ops."""
     return torch.where(a == 0, torch.zeros_like(a), p - a)
 
 
@@ -79,7 +142,28 @@ def _barrett(prod: torch.Tensor, p, mu, k) -> torch.Tensor:
 
 def mul_mod(a: torch.Tensor, b: torch.Tensor, p, mu, k) -> torch.Tensor:
     """(a * b) mod p elementwise via Barrett."""
+    if _on_card(a, b):
+        return rns_cuda.rns_map("mul_mod", a, b, p, mu, k)
+    return mul_mod_plain(a, b, p, mu, k)
+
+
+def mul_mod_plain(a, b, p, mu, k):
+    """``mul_mod`` in plain PyTorch ops."""
     return _barrett(a * b, p, mu, k)
+
+
+def mul_add_mod(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, p, mu,
+                k) -> torch.Tensor:
+    """add_mod(mul_mod(a, b), c): the fused multiply-add of encryption,
+    decryption and the ct x ct product, one K9 launch on the card."""
+    if _on_card(a, b, c):
+        return rns_cuda.rns_map("mul_add_mod", a, b, c, p, mu, k)
+    return mul_add_mod_plain(a, b, c, p, mu, k)
+
+
+def mul_add_mod_plain(a, b, c, p, mu, k):
+    """``mul_add_mod`` in plain PyTorch ops."""
+    return add_mod_plain(mul_mod_plain(a, b, p, mu, k), c, p)
 
 
 def sum_mod(a: torch.Tensor, dim: int, p, mu, k) -> torch.Tensor:
@@ -89,9 +173,31 @@ def sum_mod(a: torch.Tensor, dim: int, p, mu, k) -> torch.Tensor:
     return _barrett(a.sum(dim), p, mu, k)
 
 
+def mod_product_sum(C: torch.Tensor, w: torch.Tensor, dim: int, p, mu,
+                    k) -> torch.Tensor:
+    """sum_mod(mul_mod(C, w), dim): the BSGS group sum, one K10 pass on the
+    card that never forms the product stack.  p, mu, k must not vary
+    along `dim`."""
+    if _on_card(C, w):
+        return rns_cuda.mod_product_sum(C, w, dim, p, mu, k)
+    return mod_product_sum_plain(C, w, dim, p, mu, k)
+
+
+def mod_product_sum_plain(C, w, dim, p, mu, k):
+    """``mod_product_sum`` in plain PyTorch ops."""
+    return sum_mod(mul_mod_plain(C, w, p, mu, k), dim, p, mu, k)
+
+
 def mul_mod_shoup(a: torch.Tensor, w, w_shoup, p) -> torch.Tensor:
     """(a * w) mod p with w' = floor(w*2^32/p); requires w < p and
     a < p."""
+    if _on_card(a, w):
+        return rns_cuda.rns_map("mul_mod_shoup", a, w, w_shoup, p)
+    return mul_mod_shoup_plain(a, w, w_shoup, p)
+
+
+def mul_mod_shoup_plain(a, w, w_shoup, p):
+    """``mul_mod_shoup`` in plain PyTorch ops."""
     q = (a * w_shoup) >> 32
     r = a * w - q * p
     return torch.where(r >= p, r - p, r)
@@ -103,6 +209,13 @@ def mul_mod_shoup_wide(a: torch.Tensor, w, w_shoup, p) -> torch.Tensor:
     mod a different, possibly smaller, prime -- outside Barrett's
     domain).  The Shoup quotient errs by < a/2^32 + 1, so r < 3p and
     two corrections suffice."""
+    if _on_card(a, w):
+        return rns_cuda.rns_map("mul_mod_shoup_wide", a, w, w_shoup, p)
+    return mul_mod_shoup_wide_plain(a, w, w_shoup, p)
+
+
+def mul_mod_shoup_wide_plain(a, w, w_shoup, p):
+    """``mul_mod_shoup_wide`` in plain PyTorch ops."""
     q = (a * w_shoup) >> 32
     r = a * w - q * p
     r = torch.where(r >= p, r - p, r)
@@ -113,6 +226,13 @@ def mul_mod_shoup_lazy(a: torch.Tensor, w, w_shoup, p) -> torch.Tensor:
     """(a * w) mod p + {0, p} in [0, 2p) with no correction, for any
     0 <= a < 2^31 (e.g. a lazy value in [0, 2p)) and w < p: the
     primitive of the CUDA kernels' butterflies (csrc/modmath.cuh)."""
+    if _on_card(a, w):
+        return rns_cuda.rns_map("mul_mod_shoup_lazy", a, w, w_shoup, p)
+    return mul_mod_shoup_lazy_plain(a, w, w_shoup, p)
+
+
+def mul_mod_shoup_lazy_plain(a, w, w_shoup, p):
+    """``mul_mod_shoup_lazy`` in plain PyTorch ops."""
     q = (a * w_shoup) >> 32
     return a * w - q * p
 

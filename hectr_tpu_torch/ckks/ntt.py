@@ -25,13 +25,13 @@ import numpy as np
 import torch
 
 from hectr_tpu_torch.ckks.modmath import (
-    add_mod,
+    add_mod_plain,
     barrett_constants,
     i64,
     mul_mod,
-    mul_mod_shoup,
+    mul_mod_shoup_plain,
     shoup,
-    sub_mod,
+    sub_mod_plain,
 )
 from hectr_tpu_torch.ckks.primes import root_of_unity
 from hectr_tpu_torch.config import resolve_device
@@ -182,8 +182,8 @@ def ntt_plain(a: torch.Tensor, t: NTTTables) -> torch.Tensor:
         v = x[..., half:]
         S = t.psi_rev[:, m:2 * m, None]
         Ssh = t.psi_rev_shoup[:, m:2 * m, None]
-        v = mul_mod_shoup(v, S, Ssh, pcol)
-        a = torch.cat([add_mod(u, v, pcol), sub_mod(u, v, pcol)],
+        v = mul_mod_shoup_plain(v, S, Ssh, pcol)
+        a = torch.cat([add_mod_plain(u, v, pcol), sub_mod_plain(u, v, pcol)],
                       dim=-1).reshape(*batch, L, n)
         m *= 2
     return a
@@ -205,12 +205,12 @@ def intt_plain(a: torch.Tensor, t: NTTTables) -> torch.Tensor:
         v = x[..., half:]
         S = t.psi_inv_rev[:, h:2 * h, None]
         Ssh = t.psi_inv_rev_shoup[:, h:2 * h, None]
-        s = add_mod(u, v, pcol)
-        d = mul_mod_shoup(sub_mod(u, v, pcol), S, Ssh, pcol)
+        s = add_mod_plain(u, v, pcol)
+        d = mul_mod_shoup_plain(sub_mod_plain(u, v, pcol), S, Ssh, pcol)
         a = torch.cat([s, d], dim=-1).reshape(*batch, L, n)
         half *= 2
         m = h
-    return mul_mod_shoup(a, t.n_inv, t.n_inv_shoup, t.p)
+    return mul_mod_shoup_plain(a, t.n_inv, t.n_inv_shoup, t.p)
 
 
 def _check(a: torch.Tensor, t: NTTTables) -> None:

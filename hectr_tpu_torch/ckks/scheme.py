@@ -26,6 +26,7 @@ from typing import Protocol
 import torch
 
 from hectr_tpu_torch.ckks import dd
+from hectr_tpu_torch.ckks.basecvt import base_conv_constants, base_convert
 from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.encoding import (
     complex_tensor,
@@ -35,8 +36,8 @@ from hectr_tpu_torch.ckks.encoding import (
 )
 from hectr_tpu_torch.ckks.modmath import (
     add_mod,
+    mul_add_mod,
     mul_mod,
-    mul_mod_shoup,
     neg_mod,
     sub_mod,
 )
@@ -178,9 +179,8 @@ def encrypt(ctx: CKKSContext, keys: KeySet, pt: Plaintext,
                                              device))
     pk0 = keys.pk[0, :k]
     pk1 = keys.pk[1, :k]
-    c0 = add_mod(add_mod(mul_mod(v, pk0, t.p, t.mu, t.k), e0, t.p),
-                 pt.data, t.p)
-    c1 = add_mod(mul_mod(v, pk1, t.p, t.mu, t.k), e1, t.p)
+    c0 = add_mod(mul_add_mod(v, pk0, e0, t.p, t.mu, t.k), pt.data, t.p)
+    c1 = mul_add_mod(v, pk1, e1, t.p, t.mu, t.k)
     return Ciphertext(data=torch.stack([c0, c1], dim=-3), scale=pt.scale)
 
 
@@ -188,9 +188,8 @@ def decrypt(ctx: CKKSContext, keys: KeySet, ct: Ciphertext) -> Plaintext:
     """m = c0 + c1 * s; returns the NTT-domain plaintext."""
     k = ct.limbs
     t = ctx.tables(k, ct.data.device)
-    m = add_mod(ct.data[..., 0, :, :],
-                mul_mod(ct.data[..., 1, :, :], keys.sk[:k], t.p, t.mu, t.k),
-                t.p)
+    m = mul_add_mod(ct.data[..., 1, :, :], keys.sk[:k], ct.data[..., 0, :, :],
+                    t.p, t.mu, t.k)
     return Plaintext(data=m, scale=ct.scale)
 
 
@@ -318,17 +317,25 @@ def mul_pt(ctx: CKKSContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
 
 def _drop_one(ctx: CKKSContext, data: torch.Tensor) -> torch.Tensor:
     """Exact-rescale one trailing limb of NTT-domain residues
-    [..., K, N] -> [..., K-1, N]: (c - [c]_{p_d}) / p_d per limb."""
+    [..., K, N] -> [..., K-1, N]: (c - [c]_{p_d}) / p_d per limb.
+
+    The centred last row is a base conversion from the one prime p_d to
+    the first d primes (K6's one-group form on the card): with one source
+    prime y = x and v = rint(x / p_d) is 1 exactly when x > p_d / 2 (x /
+    p_d is never a tie: 1/(2 p_d) > 2^-31 is far above an ulp of 0.5), so
+    x - v p_d mod p_t is the centred value's residue.  Its NTT, then
+    (c - ext) p_d^-1 over the first d rows (K8, the mod-down's tail)."""
+    from hectr_tpu_torch.ckks.keyswitch import mod_down_tail
+
     k = data.shape[-2]
     d = k - 1
     device = data.device
     inv, inv_sh, p_d = ctx.rescale_constants(k, device)
     t_out = ctx.tables(d, device)
     last = intt(data[..., d:d + 1, :], ctx.tables_row(d, device))
-    centered = torch.where(last > p_d // 2, last - p_d, last)   # (-p/2, p/2]
-    ext = ntt(torch.remainder(centered, t_out.p), t_out)        # [..., d, N]
-    diff = sub_mod(data[..., :d, :], ext, t_out.p)
-    return mul_mod_shoup(diff, inv, inv_sh, t_out.p)
+    consts = base_conv_constants((p_d,), ctx.data_primes[:d], device)
+    ext = ntt(base_convert(last, consts), t_out)                # [..., d, N]
+    return mod_down_tail(data[..., :d, :], ext, inv, inv_sh, t_out.p)
 
 
 def rescale_pair(ctx: CKKSContext, a: Ciphertext) -> Ciphertext:

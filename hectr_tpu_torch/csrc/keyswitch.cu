@@ -47,7 +47,14 @@ __device__ __forceinline__ uint32_t word(const int64_t* a, int64_t i) {
 }
 
 // K6: x [lead, G, A, C] -> out [lead, G, T, C].  One thread per (leading
-// row, group, column) does the whole conversion of its column in registers:
+// row, group, column) and chunk of `tchunk` target rows (blockIdx.y) does the
+// conversion of its column for those rows in registers.  A conversion from
+// one or two source rows (the mod-down, a rescale) has only lead * C columns,
+// too few threads to fill the card at one thread a column, so the targets
+// are spread over the grid, as many chunks as one wave of resident threads
+// holds (more waves would pay the chain below once each); each chunk
+// recomputes y and v, which costs A reads of x from L2 and a few
+// multiplies, and changes no output word:
 //   y_i = x_i (Q/q_i)^-1 mod q_i                     canonical, in [0, q_i)
 //   v   = rint(y_0/q_0 + y_1/q_1 + ...)              float64, left to right
 //   out = sum_i y_i [Q/q_i]_{p_t} - v [Q]_{p_t}      mod p_t, every target t
@@ -66,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) base_convert_kernel(
     const int64_t* __restrict__ q, const int64_t* __restrict__ M,
     const int64_t* __restrict__ M_shoup, const int64_t* __restrict__ Qmod,
     const int64_t* __restrict__ Qmod_shoup, const int64_t* __restrict__ p,
-    int64_t threads_total, int G, int T, int64_t C) {
+    int64_t threads_total, int G, int T, int64_t C, int tchunk) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= threads_total) return;
@@ -95,7 +102,8 @@ __global__ void __launch_bounds__(kThreads) base_convert_kernel(
   }
   const uint32_t v = static_cast<uint32_t>(rint(s));
 
-  for (int t = 0; t < T; ++t) {
+  const int t_end = min(T, static_cast<int>(blockIdx.y + 1) * tchunk);
+  for (int t = blockIdx.y * tchunk; t < t_end; ++t) {
     const uint32_t pt = word(p, t);
     const uint32_t p2 = 2 * pt;
     uint32_t acc = 0;
@@ -236,6 +244,26 @@ unsigned blocks_for(int64_t threads_total) {
   return blocks > 0x7fffffff ? 0u : static_cast<unsigned>(blocks);
 }
 
+// The threads of K6<A> the card holds at once: SMs x the blocks an SM keeps
+// resident at this instance's registers; read once (0 if it cannot be read,
+// which leaves one chunk).
+template <int A>
+int64_t resident_threads() {
+  static const int64_t n = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, base_convert_kernel<A>, kThreads, 0) != cudaSuccess) {
+      (void)cudaGetLastError();      // leave no error for the launch check
+      return int64_t{0};
+    }
+    return static_cast<int64_t>(sms) * per_sm * kThreads;
+  }();
+  return n;
+}
+
 template <int A>
 cudaError_t launch_base_convert(const void* x, void* out, const void* inv,
                                 const void* inv_shoup, const void* q,
@@ -246,13 +274,17 @@ cudaError_t launch_base_convert(const void* x, void* out, const void* inv,
   const int64_t threads_total = lead * G * C;
   const unsigned blocks = blocks_for(threads_total);
   if (blocks == 0) return cudaErrorInvalidValue;
-  base_convert_kernel<A><<<blocks, kThreads, 0, stream>>>(
+  const int64_t fit = resident_threads<A>() / threads_total;
+  const int chunks = static_cast<int>(fit < 1 ? 1 : fit < T ? fit : T);
+  const int tchunk = (T + chunks - 1) / chunks;
+  const dim3 grid(blocks, static_cast<unsigned>((T + tchunk - 1) / tchunk));
+  base_convert_kernel<A><<<grid, kThreads, 0, stream>>>(
       static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
       static_cast<const int64_t*>(inv), static_cast<const int64_t*>(inv_shoup),
       static_cast<const int64_t*>(q), static_cast<const int64_t*>(M),
       static_cast<const int64_t*>(M_shoup), static_cast<const int64_t*>(Qmod),
       static_cast<const int64_t*>(Qmod_shoup), static_cast<const int64_t*>(p),
-      threads_total, G, T, C);
+      threads_total, G, T, C, tchunk);
   return cudaGetLastError();
 }
 

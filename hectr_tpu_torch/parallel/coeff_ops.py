@@ -42,7 +42,7 @@ from hectr_tpu_torch.ckks.keyswitch import (
 )
 from hectr_tpu_torch.ckks.modmath import (
     add_mod,
-    mul_mod,
+    mod_product_sum,
     mul_mod_shoup,
     sub_mod,
 )
@@ -199,8 +199,7 @@ class CoeffOps:
         mat = G.gemv_materials(ctx, M, k, rot_keys, device, "diag")["diag"]
         pt0 = self.shard(mat["pt0"]) if "pt0" in mat else None
         rots = [{"perm": rot["perm"],
-                 **{name: self.shard(rot[name])
-                    for name in ("ksk", "pt", "pt_sh")}}
+                 **{name: self.shard(rot[name]) for name in ("ksk", "pt")}}
                 for rot in mat["rot"]]
         pair = ctx.pair_scale(k)
 
@@ -209,10 +208,12 @@ class CoeffOps:
                 raise ValueError(f"ciphertext at {ct.limbs} limbs but the "
                                  f"gemv was built for {k}")
             t = ctx.tables(k, ct.data.device)
+            # sum_r T_r * pt_r over the terms, as the single device's
+            # diagonal method sums them (one K10 pass on the card)
+            terms, pts = [], []
             if pt0 is not None:
-                acc = mul_mod(ct.data, pt0[None], t.p, t.mu, t.k)
-            else:
-                acc = torch.zeros_like(ct.data)
+                terms.append(ct.data)
+                pts.append(pt0)
             if rots:
                 digits = self._decompose(ct.data[1])            # hoisted
                 c0 = ct.data[0]
@@ -220,10 +221,15 @@ class CoeffOps:
                     ks = self._ks_apply(self._permute(digits, rot["perm"]),
                                         rot["ksk"], k)
                     c0r = self._permute(c0, rot["perm"])
-                    term0 = mul_mod_shoup(add_mod(c0r, ks[0], t.p), rot["pt"],
-                                          rot["pt_sh"], t.p)
-                    term1 = mul_mod_shoup(ks[1], rot["pt"], rot["pt_sh"], t.p)
-                    acc = add_mod(acc, torch.stack([term0, term1]), t.p)
+                    terms.append(torch.stack([add_mod(c0r, ks[0], t.p),
+                                              ks[1]]))
+                    pts.append(rot["pt"])
+            if terms:
+                acc = mod_product_sum(torch.stack(terms),
+                                      torch.stack(pts)[:, None], 0, t.p,
+                                      t.mu, t.k)
+            else:
+                acc = torch.zeros_like(ct.data)
             return self.rescale_pair(Ciphertext(data=acc,
                                                 scale=ct.scale * pair))
 

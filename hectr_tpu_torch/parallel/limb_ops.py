@@ -72,11 +72,11 @@ from hectr_tpu_torch.ckks.keyswitch import (
 )
 from hectr_tpu_torch.ckks.modmath import (
     add_mod,
+    mod_product_sum,
     mul_mod,
     mul_mod_shoup,
     neg_mod,
     sub_mod,
-    sum_mod,
 )
 from hectr_tpu_torch.ckks.ntt import intt, ntt, ntt_tables
 from hectr_tpu_torch.ckks.scheme import (
@@ -518,7 +518,7 @@ class LimbOps:
                 return out
             if isinstance(node, list):
                 return [shard(v) for v in node]
-            if key in ("pt", "pt_sh", "pt0"):
+            if key in ("pt", "pt0"):
                 return self.shard_data(node, k)
             return node
         return shard(G.gemv_materials(self.ctx, M, k, rot_keys, device, method))
@@ -538,28 +538,32 @@ class LimbOps:
         return self.rescale_pair(LimbCiphertext(acc, ct.scale * pair, k))
 
     def _apply_diag(self, d: dict, ct: LimbCiphertext) -> tuple:
+        """sum_r T_r * pt_r on every shard, as the single device's diagonal
+        method sums them (one K10 pass a shard on the card)."""
         k = ct.limbs
+        terms, pts = [], []
         if "pt0" in d:
-            acc = self._map(lambda t, x, m: mul_mod(x, m.unsqueeze(-3), t.p,
-                                                    t.mu, t.k),
-                            k, ct.parts, d["pt0"])
-        else:
-            acc = tuple(torch.zeros_like(x) for x in ct.parts)
-        if not d["rot"]:
-            return acc
-        digits = self.decompose(tuple(x[..., 1, :, :] for x in ct.parts), k)
-        c0 = tuple(x[..., 0, :, :] for x in ct.parts)
-        for rot in d["rot"]:
-            ks = self._switch(self._permute(digits, rot["perm"]), rot["ksk"], k)
-            c0r = self._permute(c0, rot["perm"])
-
-            def term(t, a, c, w, pt, pt_sh):
-                t0 = mul_mod_shoup(add_mod(c, w[..., 0, :, :], t.p), pt, pt_sh,
-                                   t.p)
-                t1 = mul_mod_shoup(w[..., 1, :, :], pt, pt_sh, t.p)
-                return add_mod(a, torch.stack([t0, t1], dim=-3), t.p)
-            acc = self._map(term, k, acc, c0r, ks, rot["pt"], rot["pt_sh"])
-        return acc
+            terms.append(ct.parts)
+            pts.append(d["pt0"])
+        if d["rot"]:
+            digits = self.decompose(tuple(x[..., 1, :, :] for x in ct.parts),
+                                    k)
+            c0 = tuple(x[..., 0, :, :] for x in ct.parts)
+            for rot in d["rot"]:
+                ks = self._switch(self._permute(digits, rot["perm"]),
+                                  rot["ksk"], k)
+                terms.append(self._map(
+                    lambda t, c, w: torch.stack(
+                        [add_mod(c, w[..., 0, :, :], t.p), w[..., 1, :, :]],
+                        dim=-3),
+                    k, self._permute(c0, rot["perm"]), ks))
+                pts.append(rot["pt"])
+        if not terms:
+            return tuple(torch.zeros_like(x) for x in ct.parts)
+        C = tuple(torch.stack(cs, dim=-4) for cs in zip(*terms))
+        P = tuple(torch.stack(ps) for ps in zip(*pts))
+        return self._map(lambda t, c, p: mod_product_sum(
+            c, p[:, None], -4, t.p, t.mu, t.k), k, C, P)
 
     def _apply_bsgs(self, b: dict, ct: LimbCiphertext) -> tuple:
         k = ct.limbs
@@ -576,9 +580,8 @@ class LimbOps:
         C = tuple(torch.stack(cs, dim=-4) for cs in zip(*babies))
 
         def group_sum(ptg):
-            return self._map(lambda t, c, p: sum_mod(
-                mul_mod(c, p[:, None], t.p, t.mu, t.k), -4, t.p, t.mu, t.k),
-                k, C, ptg)
+            return self._map(lambda t, c, p: mod_product_sum(
+                c, p[:, None], -4, t.p, t.mu, t.k), k, C, ptg)
 
         acc = (group_sum(b["pt0"]) if "pt0" in b
                else tuple(torch.zeros_like(x) for x in ct.parts))

@@ -52,7 +52,8 @@ import functools
 import numpy as np
 import torch
 
-from hectr_tpu_torch.ckks.modmath import add_mod, mul_mod_shoup, sub_mod
+from hectr_tpu_torch.ckks.modmath import (add_mod_plain, mul_mod_shoup_plain,
+                                          sub_mod_plain)
 from hectr_tpu_torch.ckks.ntt import NTTTables, intt, ntt, ntt_tables
 
 # K1 (ntt_fwd) at [11, 24, 2^15] on an NVIDIA H100 80GB HBM3 at 700.00 W:
@@ -158,13 +159,13 @@ def exchange_stage_plain(own: torch.Tensor, recv: torch.Tensor, w, w_shoup,
       inverse:  u-shard u + v_recv,    v-shard (u_recv - v_own) S"""
     recv = recv.to(own.dtype)
     if inverse:
-        return torch.where(is_u, add_mod(own, recv, p),
-                           mul_mod_shoup(sub_mod(recv, own, p), w, w_shoup,
-                                         p))
-    sv_own = mul_mod_shoup(own, w, w_shoup, p)
-    sv_recv = mul_mod_shoup(recv, w, w_shoup, p)
-    return torch.where(is_u, add_mod(own, sv_recv, p),
-                       sub_mod(recv, sv_own, p))
+        return torch.where(is_u, add_mod_plain(own, recv, p),
+                           mul_mod_shoup_plain(sub_mod_plain(recv, own, p), w,
+                                               w_shoup, p))
+    sv_own = mul_mod_shoup_plain(own, w, w_shoup, p)
+    sv_recv = mul_mod_shoup_plain(recv, w, w_shoup, p)
+    return torch.where(is_u, add_mod_plain(own, sv_recv, p),
+                       sub_mod_plain(recv, sv_own, p))
 
 
 def cross_stages_plain(x: torch.Tensor, t: NTTTables, mesh,

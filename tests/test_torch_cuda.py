@@ -1051,3 +1051,102 @@ def test_keyswitch_wrappers_refuse_on_the_card(cuda_device):
         with pytest.raises(err):
             call()
     assert KC.LAUNCHES == before
+
+
+# ---- the scheme ops' kernels: K9/K10 (ops/rns_cuda.py) ---------------------
+
+
+def test_rns_kernels_bit_equal_plain_at_the_smokes_cases(cuda_device):
+    """K9 in every primitive at FLAGSHIP [2, 22, 2^15] and the FLAGSHIP_QP
+    batch [4, 2, 32, 2^15] (broadcast, non-contiguous and permuted
+    operands, random int64 words) and K10 at FLAGSHIP n1 = 4, over 4 loops
+    and at MEDIUM n1 = 91, against their plain versions
+    (bench.rns_kernels), each launched."""
+    from hectr_tpu_torch.bench import rns_kernels as RK
+    from hectr_tpu_torch.ops import rns_cuda as RC
+
+    RC.reset_launches()
+    assert RK.check(cuda_device) == {"rns_map": 0, "mod_product_sum": 0}
+    assert RC.LAUNCHES["mod_product_sum"] == 3
+    assert set(RC.OP_LAUNCHES) == set(RC.OPS), RC.OP_LAUNCHES
+
+
+@pytest.mark.parametrize("lead", [(), (1,), (3,), (64,)])
+def test_k6_spread_grid_bit_equal_plain(cuda_device, lead):
+    """K6's one-group form with its target rows spread over the grid: the
+    mod-down [.., 2, 2, 2^15] -> 22 rows and a rescale [.., 2, 1, 2^15] ->
+    21 rows at FLAGSHIP, from one leading row (the most chunks) to 128
+    (one chunk)."""
+    from hectr_tpu_torch.ckks import basecvt as BC
+    from hectr_tpu_torch.ops import keyswitch_cuda as KC
+
+    ctx = make_context(cfg.FLAGSHIP)
+    k = ctx.max_limbs
+    for seed, (src, dst) in enumerate(((ctx.special_primes,
+                                        ctx.data_primes[:k]),
+                                       (ctx.data_primes[k - 1:k],
+                                        ctx.data_primes[:k - 1]))):
+        x = residues(src, lead + (2, len(src), 1 << 15), seed).to(cuda_device)
+        c = BC.base_conv_constants(src, dst, cuda_device)
+        before = KC.LAUNCHES["base_convert"]
+        got = BC.base_convert(x, c)
+        torch.cuda.synchronize()
+        assert KC.LAUNCHES["base_convert"] == before + 1
+        assert torch.equal(got, BC.base_convert_plain(x, c))
+
+
+def test_one_regulator_step_launches_k9_and_k10(flagship_card):
+    """One FLAGSHIP step of the reference-shaped regulator goes through K9
+    and through K10 once for each of its six BSGS group sums (K_A and K_B
+    each have groups 0, 2 and 3)."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.control.simulate import simulate
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.ops import rns_cuda as RC
+
+    ctx, keys, rk, _, _, device = flagship_card
+    model, plant = cli.cstr_setup()
+    reg = make_hempc_regulator(ctx, keys, rk, model, plant, 4)
+    state = hempc_init_state(S.TorchSampler(2, device), device)
+    RC.reset_launches()
+    simulate(model, plant, cli.disturbance(1), 1.0, 1, device, regulator=reg,
+             regulator_state=state, horizon=4, return_state=True)
+    torch.cuda.synchronize()
+    assert RC.LAUNCHES["mod_product_sum"] == 6
+    assert RC.LAUNCHES["rns_map"] > 0
+    # encryptions and the decryption, the differences, the gemvs' rotated
+    # adds and sums, the negation, the decode's CRT digits (the rescales run
+    # through K6 and K8)
+    assert set(RC.OP_LAUNCHES) == {"add_mod", "sub_mod", "neg_mod", "mul_mod",
+                                   "mul_add_mod"}, RC.OP_LAUNCHES
+
+
+def test_rns_wrappers_refuse_on_the_card(cuda_device):
+    """int32 operands, a constant left on the CPU, shapes that do not
+    broadcast, seven unmergeable dimensions, a permutation of the wrong
+    length and constants that vary along the summed axis are refused
+    before any launch."""
+    from hectr_tpu_torch.ops import rns_cuda as RC
+
+    ctx = make_context(cfg.FLAGSHIP)
+    t = ctx.tables(ctx.max_limbs, cuda_device)
+    a = residues(t.primes, (2, len(t.primes), 1 << 15), 0).to(cuda_device)
+    y = torch.zeros((2,) * 7, dtype=torch.int64, device=cuda_device)
+    yt = y.permute(*reversed(range(7)))
+    perm = torch.arange(1 << 14, device=cuda_device)
+    C = a[None].expand(4, -1, -1, -1)
+    q = torch.ones((4, 1, len(t.primes), 1), dtype=torch.int64,
+                   device=cuda_device)
+    before = dict(RC.LAUNCHES)
+    bad = [
+        (lambda: RC.rns_map("add_mod", a.int(), a, t.p), TypeError),
+        (lambda: RC.rns_map("add_mod", a, a, t.p.cpu()), ValueError),
+        (lambda: RC.rns_map("add_mod", a, a[:, :3], t.p), ValueError),
+        (lambda: RC.rns_map("add_mod", y, yt, y), ValueError),
+        (lambda: RC.rns_map("add_mod", a, a, t.p, perm=perm), ValueError),
+        (lambda: RC.mod_product_sum(C, a, 0, q, t.mu, t.k), ValueError),
+    ]
+    for call, err in bad:
+        with pytest.raises(err):
+            call()
+    assert RC.LAUNCHES == before
