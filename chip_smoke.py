@@ -26,7 +26,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      BSGS group sum at FLAGSHIP n1 = 4, over 4 loops and at MEDIUM's
      n1 = 91) bit-equal to their plain versions, timed beside bound and
      plain (hectr_tpu_torch.bench.rns_kernels), and the wrapper's host
-     time per K9 call beside the plain composition's and its aten launches
+     time per K9 call beside the plain composition's and its aten launches;
+     the encode and decode kernels K11 (FLAGSHIP's 22 rows and the
+     FLAGSHIP_QP batch of 4 with the embedding fused, MEDIUM's m' entry) and
+     K12 (the same shapes' base rows through their stride, real encodings
+     and random residues, and its digits entry) held to their plain
+     versions (K11's m' entry and K12's y bit-equal, the fused embedding
+     bit-equal to its fixed-order sum and within one unit of y of the
+     plain composition, the unembedded values to 1e-12 relative), timed
+     beside bound and plain (hectr_tpu_torch.bench.codec_kernels)
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
@@ -88,8 +96,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      launches per batched step equal at every B.  FLAGSHIP fused over 8
      loops x 40 steps: <= 2e-9, canaries < 1e-5, loop 0's final state.
      Rows 0 and B-1 of a 4-step run against the 1-D regulator with the
-     same draws: ciphertexts bit-equal where the encodes agree, u to
-     1e-12.  Aggregate steps/s and peak device memory for each
+     same draws: ciphertexts and decoded u bit-equal at every row-step
+     whose encode inputs agree (counted), u to 1e-12 everywhere.
+     Aggregate steps/s and peak device memory for each
      "limb" (after "batch", FLAGSHIP on phase 4's keys sharded by row):
      LimbOps on local limb meshes of 2 and 3 shards (rescale_pair, digit
      decomposition, key_switch, rotate, BSGS gemv) bit-equal to the
@@ -114,10 +123,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      "suite": the bench entry point (hectr_tpu_torch.bench.suite) through
      its main() for ntt_logn15, kernel_parity and compact_key_tradeoff:
      its JSON line names the three, each passed its gate
- 10. each kernel launched on every path that uses it (K1/K2, K6-K8 and
-     K9/K10 in phases 3, 4, 6-9, "parallel", "batch" and "limb", with
-     K1/K2's launches by shape and K9's by primitive; K3 in phase 5;
-     K4/K5 in "parallel"); each
+ 10. each kernel launched on every path that uses it (K1/K2, K6-K12 in
+     phases 3, 4, 6-9, "parallel", "batch" and "limb", with K1/K2's
+     launches by shape and K9's by primitive, and each phase's launches of
+     every one of them; K3 in phase 5; K4/K5 in "parallel"); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
 """
@@ -259,6 +268,7 @@ def phase_kernels(device, kernel_rows):
                 bound_by=rec["bound_by"], library_ms=None)
     keyswitch_kernels(device, kernel_rows)
     rns_kernels(device, kernel_rows)
+    codec_kernels(device, kernel_rows)
 
 
 def keyswitch_kernels(device, kernel_rows):
@@ -320,30 +330,62 @@ def rns_kernels(device, kernel_rows):
               f"{rec['plain_aten_launches']} aten launches", flush=True)
 
 
+def codec_kernels(device, kernel_rows):
+    """K11/K12 held to their plain versions at every case of
+    ``bench.codec_kernels``, timed there beside their bounds and the plain
+    compositions, with the dispatching functions' host time per call."""
+    from hectr_tpu_torch.bench import codec_kernels as CK
+
+    res = CK.check(device)
+    print(f"[kernels] K11 (encode) and K12 (decode) held to plain at every "
+          f"case of bench.codec_kernels (FLAGSHIP, the FLAGSHIP_QP batch of "
+          f"4, MEDIUM's m' form; K12 on encodings, random residues and "
+          f"gathered digits): K11's m' entry and K12's y bit-equal, the fused "
+          f"embedding bit-equal to its fixed-order sum, {res['rounded_apart']}"
+          f" coefficients whose y the plain composition's cuBLAS product "
+          f"rounds one unit apart, unembedded values bit-equal to the "
+          f"fixed-order sum and within {CK.UNEMBED_RTOL} relative of plain; "
+          f"max |kernel - plain| {res['max_abs_err']} (K11 in units of y)",
+          flush=True)
+    for rec in CK.measure(device):
+        print(f"[kernels] {rec['kernel']} ({rec['case']}): kernel "
+              f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}) = "
+              f"{rec['share_of_bound']:.4f} of it; host {rec['host_us']:.2f} "
+              f"us a call, plain {rec['plain_host_us']:.2f} us", flush=True)
+        if rec["case"] == CK.HEADLINE:
+            kernel_rows[rec["kernel"]].update(
+                max_abs_err=res["max_abs_err"][rec["kernel"]], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=None)
+
+
 def reset_launches() -> None:
-    from hectr_tpu_torch.ops import (keyswitch_cuda, mulmod_cuda, ntt_cuda,
-                                     ntt_exchange_cuda, rns_cuda)
+    from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
+                                     ntt_cuda, ntt_exchange_cuda, rns_cuda)
 
     ntt_cuda.reset_launches()
     mulmod_cuda.reset_launches()
     ntt_exchange_cuda.reset_launches()
     keyswitch_cuda.reset_launches()
     rns_cuda.reset_launches()
+    codec_cuda.reset_launches()
 
 
 def read_launches() -> dict:
-    from hectr_tpu_torch.ops import (keyswitch_cuda, mulmod_cuda, ntt_cuda,
-                                     ntt_exchange_cuda, rns_cuda)
+    from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
+                                     ntt_cuda, ntt_exchange_cuda, rns_cuda)
 
     return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES,
             **ntt_exchange_cuda.LAUNCHES, **keyswitch_cuda.LAUNCHES,
-            **rns_cuda.LAUNCHES}
+            **rns_cuda.LAUNCHES, **codec_cuda.LAUNCHES}
 
 
-# the launches a loop phase sums: K1/K2, the key-switch kernels K6-K8 and
-# the scheme ops' kernels K9/K10
+# the launches a loop phase sums: K1/K2, the key-switch kernels K6-K8, the
+# scheme ops' kernels K9/K10 and the encode and decode kernels K11/K12
 LOOP_KERNELS = ("ntt", "intt", "base_convert", "key_inner_product",
-                "mod_down_tail", "rns_map", "mod_product_sum")
+                "mod_down_tail", "rns_map", "mod_product_sum",
+                "encode_residues", "crt_decode")
 
 
 def print_rns_launches(label: str, per: int, what: str) -> None:
@@ -891,12 +933,24 @@ class RowDraws:
 
 
 def spy_regulator(run):
-    """run() with scheme.encrypt / decrypt recording their plaintexts in,
-    ciphertexts out and ciphertexts in: (run's result, records)."""
+    """run() with scheme.encode / encrypt / decrypt / decode_ri recording
+    the encode inputs (re and im stacked: [2, ..., s]), the plaintexts
+    encrypted, the ciphertexts made and decrypted and the decoded values
+    ([2, ..., s]): (run's result, records)."""
     from hectr_tpu_torch.ckks import scheme as S
 
-    rec = {"pt": [], "ct": [], "dec": []}
-    encrypt, decrypt = S.encrypt, S.decrypt
+    rec = {"in": [], "pt": [], "ct": [], "dec": [], "out": []}
+    encode, encrypt, decrypt, decode_ri = (S.encode, S.encrypt, S.decrypt,
+                                           S.decode_ri)
+
+    def encode_spy(ctx, v, k, scale=None):
+        rec["in"].append(torch.stack(v))
+        return encode(ctx, v, k, scale)
+
+    def decode_spy(ctx, pt):
+        out = decode_ri(ctx, pt)
+        rec["out"].append(torch.stack(out))
+        return out
 
     def enc_spy(ctx, keys, pt, sampler):
         ct = encrypt(ctx, keys, pt, sampler)
@@ -908,20 +962,24 @@ def spy_regulator(run):
         rec["dec"].append(ct.data.clone())
         return decrypt(ctx, keys, ct)
 
-    S.encrypt, S.decrypt = enc_spy, dec_spy
+    S.encode, S.encrypt, S.decrypt, S.decode_ri = (encode_spy, enc_spy,
+                                                   dec_spy, decode_spy)
     try:
         out = run()
     finally:
-        S.encrypt, S.decrypt = encrypt, decrypt
+        S.encode, S.encrypt, S.decrypt, S.decode_ri = (encode, encrypt,
+                                                       decrypt, decode_ri)
     return out, rec
 
 
 def rows_equal_1d(label, reg, B, steps, device):
     """Rows 0 and B-1 of a `steps`-step batched run against the 1-D
-    regulator given the same draws: uploaded and decrypted ciphertexts
-    bit-equal wherever the row's encodes equal the 1-D encodes (the
-    card's float64 embedding products may round an ulp apart), decoded
-    u within 1e-12 everywhere."""
+    regulator given the same draws.  K11 and K12 sum each batch row in one
+    fixed order, so at every row-step whose encode inputs equal the 1-D
+    run's (the plant and estimator's cuBLAS products may round a batch row
+    an ulp apart), the plaintexts, the uploaded and decrypted ciphertexts
+    and the decoded values must be bit-equal; decoded u within 1e-12
+    everywhere."""
     from hectr_tpu_torch.bench import batch as BB
     from hectr_tpu_torch.hempc import hempc_init_state
 
@@ -936,22 +994,25 @@ def rows_equal_1d(label, reg, B, steps, device):
             reg, hempc_init_state(RowDraws([seeds[b]], device), device),
             xs[b], u0[b], 1))
         err = max(err, float((us[:, b] - us1).abs().max()))
-        per = len(rec1["pt"]) // steps
+        per = len(rec1["pt"]) // steps         # encrypts a step
+        per_in = len(rec1["in"]) // steps      # encodes a step
         for i in range(steps):
             total += 1
-            same = all(torch.equal(rec["pt"][j][b], rec1["pt"][j])
-                       for j in range(i * per, (i + 1) * per))
-            if same:
+            if all(torch.equal(rec["in"][j][:, b], rec1["in"][j])
+                   for j in range(i * per_in, (i + 1) * per_in)):
                 agree += 1
-                check(all(torch.equal(rec["ct"][j][b], rec1["ct"][j])
+                check(all(torch.equal(rec[key][j][b], rec1[key][j])
+                          for key in ("pt", "ct")
                           for j in range(i * per, (i + 1) * per))
-                      and torch.equal(rec["dec"][i][b], rec1["dec"][i]),
-                      f"{label}: row {b} step {i} ciphertexts differ from "
-                      f"the 1-D run with equal encodes")
+                      and torch.equal(rec["dec"][i][b], rec1["dec"][i])
+                      and torch.equal(rec["out"][i][:, b], rec1["out"][i]),
+                      f"{label}: row {b} step {i}: plaintexts, ciphertexts "
+                      f"or decoded values differ from the 1-D run with equal "
+                      f"encode inputs")
     print(f"[batch] {label} rows 0 and {B - 1} vs the 1-D regulator with the "
-          f"same draws over {steps} steps: encodes equal in {agree} of "
-          f"{total} row-steps (ciphertexts bit-equal there), max |u - u_1d| "
-          f"{err:.3e}", flush=True)
+          f"same draws over {steps} steps: encode inputs equal in {agree} of "
+          f"{total} row-steps (plaintexts, ciphertexts and decoded values "
+          f"bit-equal there), max |u - u_1d| {err:.3e}", flush=True)
     check(err <= 1e-12, f"{label}: batched row vs 1-D u differ by {err}")
 
 
@@ -1673,8 +1734,9 @@ def main() -> None:
 
     from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
-    from hectr_tpu_torch.ops import (build, keyswitch_cuda, mulmod_cuda,
-                                     ntt_cuda, ntt_exchange_cuda, rns_cuda)
+    from hectr_tpu_torch.ops import (build, codec_cuda, keyswitch_cuda,
+                                     mulmod_cuda, ntt_cuda, ntt_exchange_cuda,
+                                     rns_cuda)
     from hectr_tpu_torch.utils import read_traj_bin
 
     from hectr_tpu_torch.utils.pmu import Timer
@@ -1682,13 +1744,14 @@ def main() -> None:
     timer = Timer()          # each phase's wall time, device synchronized
     with timer.section("build"):
         sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu",
-                   "keyswitch.cu", "rns_ops.cu")
+                   "keyswitch.cu", "rns_ops.cu", "codec.cu")
         libs = build.build(*sources)
         ntt_cuda.library()
         mulmod_cuda.library()
         ntt_exchange_cuda.library()
         keyswitch_cuda.library()
         rns_cuda.library()
+        codec_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
           f"{timer.sections['build']:.2f} s", flush=True)
@@ -1728,6 +1791,13 @@ def main() -> None:
         "mod_product_sum": {"name": "mod_product_sum", "route": "cuda",
                             "source": "hectr_tpu_torch/csrc/rns_ops.cu",
                             "replaces": "hectr_tpu/ckks/gemv.py:430"},
+        # nor here: XLA fuses encode's and decode's float64 chains
+        "encode_residues": {"name": "encode_residues", "route": "cuda",
+                            "source": "hectr_tpu_torch/csrc/codec.cu",
+                            "replaces": "hectr_tpu/ckks/scheme.py:162"},
+        "crt_decode": {"name": "crt_decode", "route": "cuda",
+                       "source": "hectr_tpu_torch/csrc/codec.cu",
+                       "replaces": "hectr_tpu/ckks/scheme.py:187"},
     }
     with timer.section("kernels"):
         phase_kernels(device, kernel_rows)
@@ -1779,6 +1849,9 @@ def main() -> None:
              ("flagship-qp", launches_qp),
              ("he", launches_he), ("medium", launches_medium))
     for label, launches in loops:
+        print(f"[launches] {label} phase: "
+              f"{json.dumps({k: launches[k] for k in LOOP_KERNELS})}",
+              flush=True)
         for kname in LOOP_KERNELS:
             check(launches[kname] > 0,
                   f"{kname} kernel never launched in the {label} phase")

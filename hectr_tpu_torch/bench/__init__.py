@@ -215,3 +215,63 @@ def rns_bound(op: str, in_numels, out_numel: int, imad_peak: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = imads / imad_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# NVIDIA's H100 SXM data sheet: float64 outside the tensor cores (an FMA
+# counted as two operations; K11/K12 issue no FMA, so this rate is above
+# what they could reach)
+FP64_FLOP_PER_S = 34e12
+SECTOR_BYTES = 32      # what the card reads for a word at a stride
+
+
+def codec_work(kernel: str, batch: int, rows: int, width: int, n: int = 0,
+               fused: bool = False, in_numels=(), col_stride: int = 1,
+               digits: bool = False, unembed: bool = False
+               ) -> tuple[int, int]:
+    """(bytes, float64 operations) of one launch of K11 ("encode_residues")
+    or K12 ("crt_decode") over `batch` rows of `width` = 2s coefficients,
+    each input read once and each output written once:
+
+      * K11: the data operands' own elements (`in_numels`: re and im [...,
+        s], a broadcast zero vector counted once, or m' [..., 2s]), the
+        embedding matrices [s, 2s] twice if `fused`, `rows` primes in;
+        int64 [batch, rows, n] out.  Operations: the embedding's 2s
+        products and 2s sums, a sum and a division a coefficient (fused),
+        then the product by the scale, rint and the split's six a
+        coefficient and prime.
+      * K12: x int64 [batch, rows, width] read at `col_stride` words (a
+        32-byte sector a word from a stride of 4 words on), the rows'
+        constants (p, and inv, mu, k unless `digits`), the embedding
+        matrices if `unembed`; float64 [batch, width] out (y, or re and
+        im).  Operations: 35 a word and row (dd_div_ff 24, dd_add 11), 40
+        a word (dd_round 5, dd_add_f 10, dd_mul 24, the sum 1), 2 x 2s a
+        slot value if `unembed`."""
+    if kernel == "encode_residues":
+        s = width // 2
+        nbytes = 8 * (sum(in_numels) + (2 * s * width if fused else 0) + rows
+                      + batch * rows * n)
+        flops = batch * width * ((4 * s + 2) if fused else 0) \
+            + batch * width * rows * 8
+    elif kernel == "crt_decode":
+        word = SECTOR_BYTES if col_stride >= SECTOR_BYTES // 8 else 8
+        s = width // 2
+        nbytes = (batch * rows * width * word
+                  + 8 * rows * (1 if digits else 4)
+                  + (8 * 2 * s * width if unembed else 0)
+                  + 8 * batch * width)
+        flops = batch * width * (35 * rows + 40 + (2 * width if unembed
+                                                    else 0))
+    else:
+        raise ValueError(f"kernel {kernel!r}: 'encode_residues' or "
+                         f"'crt_decode'")
+    return nbytes, flops
+
+
+def codec_bound(kernel: str, batch: int, rows: int, width: int, **kw
+                ) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one launch of K11 or K12 over
+    ``codec_work``'s bytes and float64 operations (at FP64_FLOP_PER_S)."""
+    nbytes, flops = codec_work(kernel, batch, rows, width, **kw)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP64_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -12,9 +12,9 @@ a synchronize), then builds the FLAGSHIP_QP regulator as
 regulator step).  Each regulator is then profiled with torch.profiler over
 a short warm window: device kernel time per step by kernel, kernel
 launches per step, the NTT kernels' (K1/K2), the key-switch kernels'
-(K6-K8) and the scheme ops' kernels' (K9/K10) share of the device time,
-the device's busy share of the profiled wall time, and device ms and
-launches per step by scheme op.
+(K6-K8), the scheme ops' kernels' (K9/K10) and the encode and decode
+kernels' (K11/K12) share of the device time, the device's busy share of
+the profiled wall time, and device ms and launches per step by scheme op.
 
 The ops are named by ``torch.profiler.record_function`` ranges that this
 script opens around the op-set functions (``OPS``: encode, encrypt,
@@ -45,6 +45,8 @@ NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel")
 KEYSWITCH_KERNELS = ("base_convert_kernel", "key_inner_product_kernel",
                      "mod_down_tail_kernel")
 RNS_KERNELS = ("rns_map_kernel", "mod_product_sum_kernel")
+CODEC_KERNELS = ("encode_residues_kernel", "crt_decode_kernel",
+                 "crt_unembed_kernel")
 # the op ranges: name -> the functions (module, attribute) it covers
 OPS = {
     "encode": [("hectr_tpu_torch.ckks.scheme", "encode")],
@@ -194,6 +196,7 @@ def breakdown(run, steps: int) -> dict:
     ntt_us, ntt = share(NTT_KERNELS)
     ks_us, ks = share(KEYSWITCH_KERNELS)
     rns_us, rns = share(RNS_KERNELS)
+    codec_us, codec = share(CODEC_KERNELS)
     return {
         "window_steps": steps,
         "device_ms_per_step": device_us / 1e3 / steps,
@@ -207,6 +210,9 @@ def breakdown(run, steps: int) -> dict:
         "rns_ms_per_step": rns_us / 1e3 / steps,
         "rns_share": rns_us / device_us,
         "rns_by_kernel": rns,
+        "codec_ms_per_step": codec_us / 1e3 / steps,
+        "codec_share": codec_us / device_us,
+        "codec_by_kernel": codec,
         "busy_share": device_us / 1e6 / wall,
         "top_ms_per_step": [[k, v / 1e3 / steps,
                              launches[k] / steps]

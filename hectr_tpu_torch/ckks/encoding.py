@@ -19,6 +19,17 @@ is elementwise per stage, in the JAX package's float64 operation order;
 the matrix branch embeds a batch in one matrix product (which sums as
 the 1-D product does) and unembeds it through ``utils.rows.matvec``.
 Tables are cached per (size, device).
+
+Encode's float64 pass -- the embedding, round(m' * scale), the exact
+residues mod each prime and the spread to stride N/2s -- is
+``encode_rows`` / ``coefficient_rows``.  Dispatch is by the operands'
+device, as in ``ckks.modmath``: on a CUDA device it is one launch of the
+hand-written kernel K11 (``hectr_tpu_torch.ops.codec_cuda``; with the
+embedding fused for s <= MATRIX_MAX_SLOTS, after the FFT embedding above
+it), which raises on what it does not take; on the CPU the plain version
+``coefficient_rows_plain`` of ``embed_ri``, the reference K11 is held to.
+Each batch row of K11 sums its embedding in one fixed order, so it equals
+its 1-D call bit for bit on the card too.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 
 from hectr_tpu_torch.ckks.ntt import bit_reverse_indices
 from hectr_tpu_torch.config import resolve_device
+from hectr_tpu_torch.ops import codec_cuda
 from hectr_tpu_torch.utils.rows import matvec
 
 MATRIX_MAX_SLOTS = 64
@@ -53,6 +65,24 @@ def embedding_matrices(slots: int) -> tuple[np.ndarray, np.ndarray]:
 def _device_embedding(slots: int, device: torch.device):
     ReE, ImE = embedding_matrices(slots)
     return (torch.from_numpy(ReE).to(device), torch.from_numpy(ImE).to(device))
+
+
+def device_embedding(slots: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ReE, ImE) float64 [s, 2s] on `device`, cached: K11's and K12's
+    embedding operands."""
+    return _device_embedding(slots, resolve_device(device))
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Where encode's and decode's passes run: True for a CUDA tensor (the
+    kernels K11/K12, which raise on what they do not take), False on the
+    CPU (the plain versions); any other device raises."""
+    if x.is_cuda:
+        return True
+    if x.is_cpu:
+        return False
+    raise NotImplementedError(f"no CKKS encode or decode for device "
+                              f"{x.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -222,3 +252,40 @@ def integer_residues(y: torch.Tensor, primes_col: torch.Tensor) -> torch.Tensor:
     # a1 < 2^6, a2 < 2^27, c < 2^30: every product and the sum < 2^61
     r = torch.remainder(a1 * c54 + torch.remainder(a2 * c27, p) + a3, p)
     return torch.where(sign_neg[..., None, :] & (r != 0), p - r, r)
+
+
+def encode_rows(vre: torch.Tensor, vim: torch.Tensor, slots: int,
+                scale: float, primes_col: torch.Tensor, n: int) -> torch.Tensor:
+    """Slot values (re, im) float64 [..., s] -> coefficient rows int64
+    [..., K, n] before the NTT: the residues of round(embed_ri(...) *
+    scale) mod each prime (primes_col [K, 1]) at columns j * n/2s, zero
+    elsewhere.  One K11 launch on the card for s <= MATRIX_MAX_SLOTS (the
+    embedding summed in the kernel's fixed order); above it the FFT
+    embedding, then ``coefficient_rows``."""
+    if slots <= MATRIX_MAX_SLOTS and on_card(vre):
+        ReE, ImE = device_embedding(slots, vre.device)
+        return codec_cuda.encode_slots(vre, vim, ReE, ImE, scale, primes_col,
+                                       n)
+    return coefficient_rows(embed_ri(vre, vim, slots), scale, primes_col, n)
+
+
+def coefficient_rows(m: torch.Tensor, scale: float, primes_col: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Real subring coefficients m' [..., 2s] -> coefficient rows int64
+    [..., K, n] (``coefficient_rows_plain``): K11's m' entry on the card."""
+    if on_card(m):
+        return codec_cuda.encode_coefficients(m, scale, primes_col, n)
+    return coefficient_rows_plain(m, scale, primes_col, n)
+
+
+def coefficient_rows_plain(m: torch.Tensor, scale: float,
+                           primes_col: torch.Tensor, n: int) -> torch.Tensor:
+    """``coefficient_rows`` in plain PyTorch ops: y = round(m' * scale),
+    its residues, spread to stride n/2s over zero rows."""
+    stride = n // m.shape[-1]
+    y = torch.round(m * scale)
+    res = integer_residues(y, primes_col)                # [..., K, 2s]
+    coeffs = torch.zeros((*res.shape[:-1], n), dtype=torch.int64,
+                         device=m.device)
+    coeffs[..., ::stride] = res
+    return coeffs

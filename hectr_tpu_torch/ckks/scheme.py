@@ -29,9 +29,13 @@ from hectr_tpu_torch.ckks import dd
 from hectr_tpu_torch.ckks.basecvt import base_conv_constants, base_convert
 from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.encoding import (
+    MATRIX_MAX_SLOTS,
+    coefficient_rows,
+    coefficient_rows_plain,
     complex_tensor,
-    embed_ri,
-    integer_residues,
+    device_embedding,
+    encode_rows,
+    on_card,
     unembed,
 )
 from hectr_tpu_torch.ckks.modmath import (
@@ -43,6 +47,7 @@ from hectr_tpu_torch.ckks.modmath import (
 )
 from hectr_tpu_torch.ckks.ntt import intt, ntt
 from hectr_tpu_torch.config import resolve_device
+from hectr_tpu_torch.ops import codec_cuda
 
 SIGMA = 3.2  # RLWE noise standard deviation (standard CKKS choice)
 
@@ -203,51 +208,90 @@ def encode(ctx: CKKSContext, v, k: int,
     """Slot values [..., slots] -> NTT-domain plaintext over the first k
     limbs at `scale` (default Delta).  v is an (re, im) pair of float64
     tensors or a complex array or tensor (a numpy array encodes on the
-    CPU, a tensor on its device)."""
+    CPU, a tensor on its device).  On the card: K11 (the embedding fused
+    for slots <= 64), then K1."""
     if isinstance(v, tuple):
         vre, vim = v
     else:
         v = complex_tensor(v)
         vre, vim = v.real, v.imag
-    return encode_embedded(ctx, embed_ri(vre, vim, ctx.slots), k, scale)
+    scale = ctx.delta if scale is None else scale
+    t = ctx.tables(k, vre.device)
+    rows = encode_rows(vre, vim, ctx.slots, float(scale), t.p, ctx.n)
+    return Plaintext(data=ntt(rows, t), scale=scale)
 
 
 def encode_embedded(ctx: CKKSContext, m: torch.Tensor, k: int,
                     scale: Fraction | None = None) -> Plaintext:
     """Real subring coefficients m' [..., 2s] (the output of embed_ri) ->
     NTT-domain plaintext [..., k, N]: round(m' * scale), residues,
-    spread to stride N/2s, NTT."""
+    spread to stride N/2s, NTT; K11's m' entry and K1 on the card."""
     scale = ctx.delta if scale is None else scale
-    stride = ctx.n // (2 * ctx.slots)
     t = ctx.tables(k, m.device)
-    y = torch.round(m * float(scale))
-    res = integer_residues(y, t.p)                       # [..., k, 2s]
-    coeffs = torch.zeros((*res.shape[:-1], ctx.n), dtype=torch.int64,
-                         device=m.device)
-    coeffs[..., ::stride] = res
-    return Plaintext(data=ntt(coeffs, t), scale=scale)
+    return Plaintext(data=ntt(coefficient_rows(m, float(scale), t.p, ctx.n),
+                              t), scale=scale)
+
+
+def encode_embedded_plain(ctx: CKKSContext, m: torch.Tensor, k: int,
+                          scale: Fraction | None = None) -> Plaintext:
+    """``encode_embedded`` with its float64 pass in plain PyTorch ops."""
+    scale = ctx.delta if scale is None else scale
+    t = ctx.tables(k, m.device)
+    return Plaintext(data=ntt(coefficient_rows_plain(m, float(scale), t.p,
+                                                     ctx.n), t), scale=scale)
 
 
 def decode_ri(ctx: CKKSContext, pt: Plaintext) -> tuple[torch.Tensor, torch.Tensor]:
     """NTT-domain plaintext [..., K, N] -> slot values as an (re, im)
     pair of float64 [..., slots] tensors, via the double-double
     fractional CRT over the base chain (limbs beyond it carry no
-    information once value*scale < Q_base)."""
+    information once value*scale < Q_base).  On the card: K2, then K12
+    on the strided view of its rows (digits, CRT and, for slots <= 64,
+    the unembedding in one launch)."""
     k = min(pt.limbs, len(ctx.base_primes))
     stride = ctx.n // (2 * ctx.slots)
     device = pt.data.device
     t = ctx.tables(k, device)
     coeffs = intt(pt.data[..., :k, :], t)[..., ::stride]  # [..., k, 2s]
     dc = ctx.decode_constants(k, pt.scale, device)
+    if on_card(coeffs):
+        return _crt_decode_card(ctx, coeffs, t.p, dc, (dc.inv, t.mu, t.k))
     c = mul_mod(coeffs, dc.inv, t.p, t.mu, t.k)          # CRT digits
-    return crt_decode(ctx, c, dc)
+    return crt_decode_plain(ctx, c, dc)
 
 
 def crt_decode(ctx: CKKSContext, c: torch.Tensor,
                dc) -> tuple[torch.Tensor, torch.Tensor]:
-    """CRT digits c [..., k, 2s] (``decode_ri``'s) -> slot values: the
-    double-double sum of c_i / p_i over the rows in row order, its
-    fractional part times Q/scale, unembedded."""
+    """CRT digits c [..., k, 2s] (a limb mesh's gathered digits) -> slot
+    values (``crt_decode_plain``): K12's digits entry on the card."""
+    if on_card(c):
+        p = ctx.tables(c.shape[-2], c.device).p
+        return _crt_decode_card(ctx, c, p, dc, None)
+    return crt_decode_plain(ctx, c, dc)
+
+
+def _crt_decode_card(ctx: CKKSContext, x: torch.Tensor, p: torch.Tensor, dc,
+                     digit_consts) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K12 launch: unembedded in the kernel for slots <= 64, through
+    the FFT branch's ``unembed`` above."""
+    q = (dc.q_over_scale_hi, dc.q_over_scale_lo)
+    if ctx.slots <= MATRIX_MAX_SLOTS:
+        return codec_cuda.crt_decode(x, p, *q, digit_consts,
+                                     device_embedding(ctx.slots, x.device))
+    return unembed(codec_cuda.crt_decode(x, p, *q, digit_consts), ctx.slots)
+
+
+def crt_decode_plain(ctx: CKKSContext, c: torch.Tensor,
+                     dc) -> tuple[torch.Tensor, torch.Tensor]:
+    """``crt_decode`` in plain PyTorch ops: ``crt_values_plain``,
+    unembedded."""
+    return unembed(crt_values_plain(c, dc), ctx.slots)
+
+
+def crt_values_plain(c: torch.Tensor, dc) -> torch.Tensor:
+    """CRT digits c [..., k, 2s] -> the coefficients over the scale y
+    float64 [..., 2s]: the double-double sum of c_i / p_i over the rows in
+    row order, its fractional part times Q/scale."""
     k = c.shape[-2]
     acc_hi = torch.zeros(c[..., 0, :].shape, dtype=torch.float64,
                          device=c.device)
@@ -259,7 +303,7 @@ def crt_decode(ctx: CKKSContext, c: torch.Tensor,
     r = dd.dd_round((acc_hi, acc_lo))
     frac = dd.dd_add_f((acc_hi, acc_lo), -r)
     y = dd.dd_mul(frac, (dc.q_over_scale_hi, dc.q_over_scale_lo))
-    return unembed(dd.dd_to_float(y), ctx.slots)
+    return dd.dd_to_float(y)
 
 
 def decode(ctx: CKKSContext, pt: Plaintext) -> torch.Tensor:

@@ -44,6 +44,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "modmath.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -81,37 +83,6 @@ struct Args {
   int64_t red_size;
   uint32_t col_blocks;                     // blocks along a row
 };
-
-// int64 arithmetic that wraps as PyTorch's does (signed overflow is not
-// defined in C++, unsigned wrap-around is).
-__device__ __forceinline__ int64_t add64(int64_t a, int64_t b) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) +
-                              static_cast<uint64_t>(b));
-}
-__device__ __forceinline__ int64_t sub64(int64_t a, int64_t b) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) -
-                              static_cast<uint64_t>(b));
-}
-__device__ __forceinline__ int64_t mul64(int64_t a, int64_t b) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) *
-                              static_cast<uint64_t>(b));
-}
-// PyTorch's right shift of int64: arithmetic, and a shift by 63 or more (or
-// by a negative amount) shifts by 63.
-__device__ __forceinline__ int64_t shr64(int64_t a, int64_t s) {
-  return static_cast<uint64_t>(s) >= 63 ? a >> 63 : a >> s;
-}
-__device__ __forceinline__ int64_t correct(int64_t r, int64_t p) {
-  return r >= p ? r - p : r;
-}
-
-// _barrett of ckks/modmath.py: q = ((x >> (k-2)) * mu) >> (k+2), r = x - q p,
-// two corrections.
-__device__ __forceinline__ int64_t barrett(int64_t x, int64_t p, int64_t mu,
-                                           int64_t k) {
-  const int64_t q = shr64(mul64(shr64(x, sub64(k, 2)), mu), add64(k, 2));
-  return correct(correct(sub64(x, mul64(q, p)), p), p);
-}
 
 template <int OP>
 __device__ __forceinline__ int64_t apply(const int64_t (&v)[kMaxOperands]) {

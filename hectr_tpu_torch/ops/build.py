@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc, at first use, into its own
 shared library ``csrc/build/libhectr_<name>.so`` with a plain C
-interface, loaded with ctypes.  A library is rebuilt when its source or
+interface, loaded with ctypes; ``launch_on`` calls an entry point on the
+current stream of a card.  A library is rebuilt when its source or
 any header of ``csrc/`` is newer than it.  ``build`` starts one nvcc per
 stale source, all at once, and waits for all of them.  Nothing here
 touches CUDA or nvcc at import time.
@@ -11,11 +12,14 @@ touches CUDA or nvcc at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
@@ -96,3 +100,17 @@ def raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.hectr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+@functools.lru_cache(maxsize=1)
+def _several_cards() -> bool:
+    return torch.cuda.device_count() > 1
+
+
+def launch_on(entry, device: int, *args) -> int:
+    """Call the C entry point `entry` with `args` and the current stream of
+    card `device` appended, with that card current."""
+    if _several_cards() and device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    return entry(*args, torch._C._cuda_getCurrentRawStream(device))

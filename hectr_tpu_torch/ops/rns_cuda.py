@@ -48,7 +48,7 @@ import math
 
 import torch
 
-from hectr_tpu_torch.ops.build import load, raise_on
+from hectr_tpu_torch.ops.build import launch_on, load, raise_on
 
 MAX_DIMS = 6          # merged dimensions the kernels take
 # K9's primitives: (code in csrc/rns_ops.cu, operands)
@@ -261,20 +261,6 @@ def _map_launch(op: str, operands, perm, nconst: int) -> _Launch:
                    consts=tuple(operands[len(operands) - nconst:]))
 
 
-@functools.lru_cache(maxsize=1)
-def _several_cards() -> bool:
-    return torch.cuda.device_count() > 1
-
-
-def _call(entry, device: int, *args) -> int:
-    """Call a C entry point with the launch's stream appended, on the
-    operands' card."""
-    if _several_cards() and device != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return entry(*args, torch._C._cuda_getCurrentRawStream(device))
-    return entry(*args, torch._C._cuda_getCurrentRawStream(device))
-
-
 def rns_map(op: str, *operands: torch.Tensor,
             perm: torch.Tensor | None = None) -> torch.Tensor:
     """K9: the primitive `op` (a key of OPS) of ``ckks.modmath`` over
@@ -300,7 +286,7 @@ def rns_map(op: str, *operands: torch.Tensor,
     if plan.empty:
         return out
     lib = library()
-    rc = _call(lib.hectr_rns_map, plan.device, code, plan.ndim, arity,
+    rc = launch_on(lib.hectr_rns_map, plan.device, code, plan.ndim, arity,
                plan.sizes, plan.strides,
                *[x.data_ptr() for x in operands], *[None] * (6 - arity),
                out.data_ptr(), None if perm is None else perm.data_ptr())
@@ -339,7 +325,7 @@ def mod_product_sum(C: torch.Tensor, w: torch.Tensor, dim: int,
     if plan.empty:
         return out
     lib = library()
-    rc = _call(lib.hectr_mod_product_sum, plan.device, plan.ndim, plan.sizes,
+    rc = launch_on(lib.hectr_mod_product_sum, plan.device, plan.ndim, plan.sizes,
                plan.strides, plan.red_strides, plan.red_size,
                *[x.data_ptr() for x in operands], out.data_ptr())
     raise_on(lib, rc, "mod_product_sum")

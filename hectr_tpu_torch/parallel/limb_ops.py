@@ -62,7 +62,13 @@ from hectr_tpu_torch.ckks.basecvt import (
     grouped_convert,
 )
 from hectr_tpu_torch.ckks.context import CKKSContext
-from hectr_tpu_torch.ckks.encoding import complex_tensor, embed_ri, integer_residues
+from hectr_tpu_torch.ckks.encoding import (
+    MATRIX_MAX_SLOTS,
+    coefficient_rows,
+    complex_tensor,
+    embed_ri,
+    encode_rows,
+)
 from hectr_tpu_torch.ckks.keyswitch import (
     _ks_constants,
     galois_element,
@@ -277,30 +283,39 @@ class LimbOps:
     @traced
     def encode(self, v, k: int) -> LimbPlaintext:
         """``scheme.encode``: slot values -> each shard's rows of the
-        NTT-domain plaintext (the embedding once, the residues and
-        transforms per shard)."""
+        NTT-domain plaintext.  Each shard's rows are ``encode_rows`` over
+        its primes (on the card one K11 launch a shard, the embedding fused
+        and summed as on one device); above MATRIX_MAX_SLOTS the FFT
+        embedding once, then ``encode_embedded``."""
         if isinstance(v, tuple):
             vre, vim = v
         else:
             v = complex_tensor(v)
             vre, vim = v.real, v.imag
-        return self.encode_embedded(embed_ri(vre, vim, self.ctx.slots), k)
+        ctx = self.ctx
+        if ctx.slots > MATRIX_MAX_SLOTS:
+            return self.encode_embedded(embed_ri(vre, vim, ctx.slots), k)
+        return self._encode_parts(lambda p: encode_rows(
+            vre, vim, ctx.slots, float(ctx.delta), p, ctx.n), k, vre.device)
 
     @traced
     def encode_embedded(self, m: torch.Tensor, k: int) -> LimbPlaintext:
-        """``scheme.encode_embedded`` at the scale Delta."""
+        """``scheme.encode_embedded`` at the scale Delta: each shard's rows
+        through ``coefficient_rows`` (K11's m' entry a shard on the
+        card)."""
         ctx = self.ctx
-        stride = ctx.n // (2 * ctx.slots)
-        y = torch.round(m * float(ctx.delta))
+        return self._encode_parts(lambda p: coefficient_rows(
+            m, float(ctx.delta), p, ctx.n), k, m.device)
+
+    def _encode_parts(self, rows, k: int, device) -> LimbPlaintext:
+        """Each held shard's NTT-domain plaintext rows, `rows(primes_col)`
+        giving its coefficient rows (none for a shard without rows at level
+        k: no launch)."""
         parts = []
         for s in self.held:
-            t = self._tables(self._data(s, k), m.device)
-            res = integer_residues(y, t.p)               # [..., r, 2s]
-            coeffs = torch.zeros((*res.shape[:-1], ctx.n), dtype=torch.int64,
-                                 device=m.device)
-            coeffs[..., ::stride] = res
-            parts.append(_ntt(coeffs, t))
-        return LimbPlaintext(tuple(parts), ctx.delta, k)
+            t = self._tables(self._data(s, k), device)
+            parts.append(_ntt(rows(t.p), t))
+        return LimbPlaintext(tuple(parts), self.ctx.delta, k)
 
     @traced
     def encrypt(self, keys: LimbKeys, pt: LimbPlaintext,
@@ -334,8 +349,9 @@ class LimbOps:
 
     def decode_ri(self, pt: LimbPlaintext) -> tuple[torch.Tensor, torch.Tensor]:
         """``scheme.decode_ri``: each shard's CRT digits over the base
-        chain, gathered in row order, then the double-double sum (on every
-        shard: the result is replicated)."""
+        chain, gathered in row order, then the double-double sum and the
+        unembedding (``scheme.crt_decode``: K12's digits entry on the card;
+        on every shard: the result is replicated)."""
         ctx = self.ctx
         k = min(pt.limbs, len(ctx.base_primes))
         stride = ctx.n // (2 * ctx.slots)

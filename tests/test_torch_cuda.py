@@ -1115,9 +1115,9 @@ def test_one_regulator_step_launches_k9_and_k10(flagship_card):
     assert RC.LAUNCHES["mod_product_sum"] == 6
     assert RC.LAUNCHES["rns_map"] > 0
     # encryptions and the decryption, the differences, the gemvs' rotated
-    # adds and sums, the negation, the decode's CRT digits (the rescales run
-    # through K6 and K8)
-    assert set(RC.OP_LAUNCHES) == {"add_mod", "sub_mod", "neg_mod", "mul_mod",
+    # adds and sums, the negation (the rescales run through K6 and K8, the
+    # decode's CRT digits through K12)
+    assert set(RC.OP_LAUNCHES) == {"add_mod", "sub_mod", "neg_mod",
                                    "mul_add_mod"}, RC.OP_LAUNCHES
 
 
@@ -1150,3 +1150,172 @@ def test_rns_wrappers_refuse_on_the_card(cuda_device):
         with pytest.raises(err):
             call()
     assert RC.LAUNCHES == before
+
+
+# ---- K11 / K12: encode's float64 pass and the double-double CRT decode ------
+
+
+def _embedding_inputs(ctx, batch, seed, device, scale=2.0):
+    rng = np.random.default_rng(seed)
+    vre = torch.from_numpy(rng.uniform(-scale, scale, (*batch, ctx.slots)))
+    vim = torch.from_numpy(rng.uniform(-scale, scale, (*batch, ctx.slots)))
+    return vre.to(device), vim.to(device)
+
+
+@pytest.mark.parametrize("preset", ["FLAGSHIP", "MEDIUM"])
+def test_k11_m_entry_bit_equal_encode_embedded_plain(cuda_device, preset):
+    """K11's m' entry (encode_embedded on the card) bit-equal to
+    encode_embedded_plain on the card, 1-D, batched and through a
+    non-contiguous m', at Delta and at a pair-of-primes scale."""
+    from hectr_tpu_torch.ckks import encoding as E
+    from hectr_tpu_torch.ops import codec_cuda
+
+    ctx = make_context(getattr(cfg, preset))
+    k = ctx.max_limbs
+    for batch in ((), (3,), (2, 3)):
+        vre, vim = _embedding_inputs(ctx, batch, len(batch), cuda_device)
+        m = E.embed_ri(vre, vim, ctx.slots)
+        for mm in (m, torch.cat([m, m], -1)[..., ::2]):
+            for scale in (ctx.delta, ctx.pair_scale(k)):
+                before = codec_cuda.LAUNCHES["encode_residues"]
+                got = S.encode_embedded(ctx, mm, k, scale)
+                assert codec_cuda.LAUNCHES["encode_residues"] == before + 1
+                want = S.encode_embedded_plain(ctx, mm, k, scale)
+                assert torch.equal(got.data, want.data), (batch, scale)
+
+
+@pytest.mark.parametrize("preset", ["REFERENCE_HEMPC", "FLAGSHIP",
+                                    "FLAGSHIP_QP"])
+def test_k11_fused_embedding_against_plain_composition(cuda_device, preset):
+    """K11 with the embedding fused, on the card: bit-equal to the plain
+    integer stage of its fixed-order embedding; against the plain
+    composition (cuBLAS's product) equal except at coefficients where the
+    two float64 embeddings round apart, each within one unit of y (their
+    count is printed); every batch row bit-equal to its 1-D encode."""
+    from hectr_tpu_torch.bench.codec_kernels import embed_in_kernel_order
+    from hectr_tpu_torch.ckks import encoding as E
+
+    ctx = make_context(getattr(cfg, preset))
+    k = ctx.max_limbs
+    s, stride = ctx.slots, ctx.n // (2 * ctx.slots)
+    ReE, ImE = E.device_embedding(s, cuda_device)
+    apart = total = 0
+    for batch, scale in (((), ctx.delta), ((4,), ctx.pair_scale(k)),
+                         ((2, 3), ctx.delta)):
+        vre, vim = _embedding_inputs(ctx, batch, 7 + len(batch), cuda_device)
+        got = S.encode(ctx, (vre, vim), k, scale).data
+        m_order = embed_in_kernel_order(vre, vim, ReE, ImE)
+        assert torch.equal(got, S.encode_embedded_plain(ctx, m_order, k,
+                                                        scale).data)
+        m_plain = E.embed_ri(vre, vim, s)
+        y_order = torch.round(m_order * float(scale))
+        y_plain = torch.round(m_plain * float(scale))
+        assert float((y_order - y_plain).abs().max()) <= 1
+        p = ctx.tables(k, cuda_device).p
+        rows = E.encode_rows(vre, vim, s, float(scale), p, ctx.n)
+        rows_plain = E.coefficient_rows_plain(m_plain, float(scale), p, ctx.n)
+        same = (rows == rows_plain)[..., ::stride].all(dim=-2)
+        differ = y_order != y_plain
+        assert bool(same[~differ].all()) and not bool(same[differ].any())
+        apart += int(differ.sum())
+        total += differ.numel()
+        for b in np.ndindex(*batch):
+            assert torch.equal(S.encode(ctx, (vre[b], vim[b]), k, scale).data,
+                               got[b])
+    print(f"{preset}: {apart} of {total} coefficients rounded one unit apart "
+          f"from the plain composition")
+
+
+@pytest.mark.parametrize("preset", ["REFERENCE_HEMPC", "FLAGSHIP", "MEDIUM"])
+def test_k12_values_bit_equal_plain_chain(cuda_device, preset):
+    """K12's y bit-equal to the plain double-double chain (run on the CPU:
+    PyTorch on the card divides by a CPU scalar through its reciprocal,
+    the JAX package and the kernel by IEEE division), its unembedded
+    values within 1e-12 x max(1, |plain|) of the plain unembedding, its
+    digits entry equal to the coefficients' entry, batch rows bit-equal to
+    their 1-D decode."""
+    from hectr_tpu_torch.ckks import encoding as E
+    from hectr_tpu_torch.ckks.modmath import mul_mod_plain
+    from hectr_tpu_torch.ops import codec_cuda
+
+    ctx = make_context(getattr(cfg, preset))
+    stride = ctx.n // (2 * ctx.slots)
+    for limbs, batch in ((1, ()), (2, (3,)), (ctx.max_limbs, (2, 3))):
+        vre, vim = _embedding_inputs(ctx, batch, limbs, cuda_device)
+        pt = S.encode(ctx, (vre, vim), limbs)
+        k = min(limbs, len(ctx.base_primes))
+        t = ctx.tables(k, cuda_device)
+        dc = ctx.decode_constants(k, pt.scale, cuda_device)
+        x = T.intt(pt.data[..., :k, :], t)[..., ::stride]
+        digits = mul_mod_plain(x, dc.inv, t.p, t.mu, t.k)
+        y_plain = S.crt_values_plain(digits.cpu(), dc)
+        q = (dc.q_over_scale_hi, dc.q_over_scale_lo)
+        y = codec_cuda.crt_decode(x, t.p, *q, (dc.inv, t.mu, t.k))
+        assert torch.equal(y.cpu(), y_plain)
+        assert torch.equal(codec_cuda.crt_decode(digits, t.p, *q).cpu(),
+                           y_plain)
+        re, im = S.decode_ri(ctx, pt)
+        for got, want in zip((re, im), E.unembed(y_plain.to(cuda_device),
+                                                 ctx.slots)):
+            assert bool(((got - want).abs()
+                         <= 1e-12 * want.abs().clamp(min=1)).all())
+        if limbs >= len(ctx.base_primes):
+            assert float((re - vre).abs().max()) <= 1e-6
+        for b in np.ndindex(*batch):
+            r1, i1 = S.decode_ri(ctx, S.Plaintext(pt.data[b], pt.scale))
+            assert torch.equal(r1, re[b]) and torch.equal(i1, im[b])
+
+
+@pytest.mark.parametrize("preset", ["REFERENCE_HEMPC", "FLAGSHIP"])
+def test_decode_roundtrip_on_cuda_inside_the_loop_bars(cuda_device, preset):
+    """encrypt(encode(v)) decrypted and decoded through K11/K12 on the
+    card: within tests/test_hempc.py's per-channel bar (5e-10) of v and
+    with an imaginary residue under its canary (1e-5); K11 and K12 each
+    launched once an encode and a decode."""
+    from hectr_tpu_torch.ops import codec_cuda
+
+    ctx = make_context(getattr(cfg, preset))
+    keys = S.keygen(ctx, S.TorchSampler(0, cuda_device), cuda_device)
+    v = torch.linspace(-1, 1, ctx.slots, dtype=torch.float64,
+                       device=cuda_device)
+    codec_cuda.reset_launches()
+    ct = S.encrypt(ctx, keys, S.encode(ctx, (v, torch.zeros_like(v)),
+                                       ctx.max_limbs),
+                   S.TorchSampler(1, cuda_device))
+    re, im = S.decode_ri(ctx, S.decrypt(ctx, keys, ct))
+    assert codec_cuda.LAUNCHES == {"encode_residues": 1, "crt_decode": 1}
+    assert float((re - v).abs().max()) < 5e-10
+    assert float(im.abs().max()) < 1e-5
+
+
+def test_codec_wrappers_refuse_on_the_card(cuda_device):
+    """int32 slot values, primes left on the CPU, an embedding of the wrong
+    width, more than 128 coefficients to unembed and five unmergeable batch
+    dimensions are refused before any launch."""
+    from hectr_tpu_torch.ckks import encoding as E
+    from hectr_tpu_torch.ops import codec_cuda
+
+    ctx = make_context(cfg.FLAGSHIP)
+    p = ctx.tables(2, cuda_device).p
+    ReE, ImE = E.device_embedding(16, cuda_device)
+    v = torch.zeros(16, dtype=torch.float64, device=cuda_device)
+    x = torch.zeros((2, 256), dtype=torch.int64, device=cuda_device)
+    deep = torch.zeros((2,) * 5 + (16,), dtype=torch.float64,
+                       device=cuda_device).permute(4, 3, 2, 1, 0, 5)
+    before = dict(codec_cuda.LAUNCHES)
+    bad = [
+        (lambda: codec_cuda.encode_slots(v.int(), v, ReE, ImE, 1.0, p, 1 << 15),
+         TypeError),
+        (lambda: codec_cuda.encode_slots(v, v, ReE, ImE, 1.0, p.cpu(),
+                                         1 << 15), ValueError),
+        (lambda: codec_cuda.encode_slots(v, v, ReE[:8], ImE, 1.0, p, 1 << 15),
+         ValueError),
+        (lambda: codec_cuda.crt_decode(x, p, 1.0, 0.0, None, (ReE, ImE)),
+         ValueError),
+        (lambda: codec_cuda.encode_slots(deep, deep, ReE, ImE, 1.0, p,
+                                         1 << 15), ValueError),
+    ]
+    for call, err in bad:
+        with pytest.raises(err):
+            call()
+    assert codec_cuda.LAUNCHES == before
