@@ -1,0 +1,13 @@
+"""keyswitch_ms_per_loop_step.serve: device time of the key-switch
+kernels K6-K8 (base_convert_kernel, key_inner_product_kernel,
+mod_down_tail_kernel) over the loop-steps traced (plants x steps), ms."""
+
+from benchmark.readings import KEYSWITCH_KERNELS, device_seconds
+
+
+def read(run):
+    got = device_seconds(run, KEYSWITCH_KERNELS)
+    t = run.trace
+    if got is None or not t.steps:
+        return None
+    return got[1] / (run.plants * t.steps) * 1e3
