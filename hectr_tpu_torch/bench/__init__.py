@@ -170,6 +170,18 @@ def keyswitch_bound(kernel: str, shape, mult_peak: float, targets: int = 0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def keyswitch_launch_work(key) -> tuple[int, int]:
+    """``keyswitch_work`` of one launch counted in
+    ``ops.keyswitch_cuda.LAUNCH_SHAPES`` under `key`."""
+    kernel, shape, *rest = key
+    if kernel == "base_convert":
+        return keyswitch_work(kernel, shape, targets=rest[0])
+    if kernel == "key_inner_product":
+        key_shape, perm = rest
+        return keyswitch_work(kernel, shape, key_words=key_shape[1], perm=perm)
+    return keyswitch_work(kernel, shape)
+
+
 # 64-bit multiplies a K9 primitive does per output word, as its formulas
 # (ckks/modmath.py) write them: Barrett a*b, (.)*mu, q*p; Shoup a*w',
 # a*w, q*p.  K10 does mul_mod's three per product and Barrett's two per

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from hectr_tpu_torch.config import CKKSPreset
+from hectr_tpu_torch.utils import pmu
 
 REFERENCE_BATCHES = (1, 4, 16, 64)
 FUSED_BATCHES = (1, 4, 8, 16, 32)
@@ -68,9 +69,16 @@ def profile_kernels(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         fn()
         torch.cuda.synchronize()
+    return kernel_totals(p.key_averages())
+
+
+def kernel_totals(averages) -> dict:
+    """Launches and device ms of the device operations among
+    ``key_averages()`` rows: the ranges the profiler mirrors onto the
+    device's timeline (the port's spans) are no launches."""
     launches, us = 0, 0.0
-    for evt in p.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+    for evt in averages:
+        if pmu.is_device_op(evt):
             launches += evt.count
             us += _device_us(evt)
     return {"kernel_launches": launches, "device_ms": us / 1e3}

@@ -1,45 +1,50 @@
-"""Where a step's device time goes, on the card, kernel by kernel and op by
-op: the FLAGSHIP reference-shaped regulator, the fused one, and the
-constrained FLAGSHIP_QP regulator.
+"""Where a step's time goes, on the card, by the port's own spans: the
+benchmark's configuration first (preset ``reference-hempc-secure``, the
+CSTR closed loop, one plant and 1,024 plants in one regulator), then the
+FLAGSHIP reference-shaped and fused loops and the constrained
+FLAGSHIP_QP loop.
 
     python -m hectr_tpu_torch.bench.profile_step
 
-Builds the FLAGSHIP keys (BSGS rotations) and both FLAGSHIP regulators,
-times the reference-shaped and the fused loops over STEPS steps each
-(warm: each loop has run once before; host clock around work that ends in
-a synchronize), then builds the FLAGSHIP_QP regulator as
-``bench.batch.qp_regulator`` does and times its 10-step loop (median
-regulator step).  Each regulator is then profiled with torch.profiler over
-a short warm window: device kernel time per step by kernel, kernel
-launches per step, the NTT kernels' (K1/K2), the key-switch kernels'
-(K6-K8), the scheme ops' kernels' (K9/K10) and the encode and decode
-kernels' (K11/K12) share of the device time, the device's busy share of
-the profiled wall time, and device ms and launches per step by scheme op.
+Each loop runs once warm, then STEPS steps on the host clock (ending in
+the trajectories' copy to the host) and STEPS steps inside a
+``pmu.recording()`` (the host's calls, total and self ms a step by span,
+without the profiler), TURNS times in turns, then a short window under
+torch.profiler TURNS times with the port's ranges and TURNS times
+without them (``pmu.muted``), in turns: the ranges' and the recording's
+cost.  The last recording and the first profiled window are reduced:
 
-The ops are named by ``torch.profiler.record_function`` ranges that this
-script opens around the op-set functions (``OPS``: encode, encrypt,
-add/sub, gemv, rescale, decrypt, decode, mul_ct, the QP clip), by
-replacing those functions, in every module of the package that holds
-them, with wrappers that open their range during the profiled window
-only.  A kernel belongs to the innermost range open when its launch was
-made (the CUDA runtime's launch event, matched to the kernel by its
-correlation id); launches outside every range count as "other".  The
-library has no hook for this; the same script profiles a parent checkout
-when copied into it.  Prints one JSON line.
+  * device ms and launches a step by kernel, and the NTT (K1/K2),
+    key-switch (K6-K8), scheme-op (K9/K10) and codec (K11/K12) kernels'
+    shares of the device time;
+  * device ms and launches a step by innermost ``hectr.`` span, the
+    launches whose host call the trace lacks counted apart, and the
+    device's idle time a step by the innermost span open on the host at
+    each gap's middle (``pmu.by_span``);
+  * the K6-K8 roofline: the least time of the launches counted in
+    ``ops.keyswitch_cuda.LAUNCH_SHAPES`` (each launch's bytes,
+    ``bench.keyswitch_launch_work``, at the data sheet's bandwidth) over
+    the kernels' device time.
+
+The tables go to standard error; the last line of standard output is one
+JSON object.  Also printed: what a span costs on this host with nothing
+listening (``span_off_us``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import functools
-import importlib
 import json
 import sys
 import time
+import timeit
 
 import numpy as np
 import torch
+
+from hectr_tpu_torch import bench
+from hectr_tpu_torch.utils import pmu
 
 NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel")
 KEYSWITCH_KERNELS = ("base_convert_kernel", "key_inner_product_kernel",
@@ -47,25 +52,11 @@ KEYSWITCH_KERNELS = ("base_convert_kernel", "key_inner_product_kernel",
 RNS_KERNELS = ("rns_map_kernel", "mod_product_sum_kernel")
 CODEC_KERNELS = ("encode_residues_kernel", "crt_decode_kernel",
                  "crt_unembed_kernel")
-# the op ranges: name -> the functions (module, attribute) it covers
-OPS = {
-    "encode": [("hectr_tpu_torch.ckks.scheme", "encode")],
-    "encrypt": [("hectr_tpu_torch.ckks.scheme", "encrypt")],
-    "add/sub": [("hectr_tpu_torch.ckks.scheme", f)
-                for f in ("add", "sub", "neg", "add_pt")],
-    "gemv": [("hectr_tpu_torch.ckks.gemv", "gemv_apply")],
-    "rescale": [("hectr_tpu_torch.ckks.scheme", "rescale_pair")],
-    "decrypt": [("hectr_tpu_torch.ckks.scheme", "decrypt")],
-    "decode": [("hectr_tpu_torch.ckks.scheme", "decode_ri")],
-    "mul_ct": [("hectr_tpu_torch.ckks.keyswitch", "mul_ct")],
-    "QP clip": [("hectr_tpu_torch.hempc.qp_enc", "_clip_build")],
-}
-RANGE = "op:"
-STEPS = 40     # the smoke's loops
-WINDOW = 8     # profiled FLAGSHIP steps: a few full steps, a short trace
-QP_WINDOW = 2  # profiled FLAGSHIP_QP steps (each some 9,000 launches)
-
-_ranges_on = False
+STEPS = 40         # the loops' episodes
+WINDOW = 8         # profiled steps: a few whole steps, a short trace
+QP_WINDOW = 2      # profiled FLAGSHIP_QP steps (each some 1,100 launches)
+SERVED = 1024      # plants of the benchmark's served cell
+TURNS = 3          # readings of each host-clock step time
 
 
 def _device_us(evt) -> float:
@@ -76,149 +67,150 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _is_kernel(evt) -> bool:
-    """A device event that is no op range: the profiler also records each
-    range open on the host as a span on the device's timeline."""
-    return (str(getattr(evt, "device_type", "")).endswith("CUDA")
-            and not evt.name.startswith(RANGE))
-
-
-def _ranged(name: str, fn):
-    """fn inside the range `name` while the profiled window is open."""
-    from torch.profiler import record_function
-
-    @functools.wraps(fn)
-    def op(*args, **kwargs):
-        if not _ranges_on:
-            return fn(*args, **kwargs)
-        with record_function(RANGE + name):
-            return fn(*args, **kwargs)
-    return op
-
-
-def _clip_ranged(build):
-    """``qp_enc._clip_build``, its `apply` closure ranged as "QP clip"."""
-    @functools.wraps(build)
-    def wrapped(*args, **kwargs):
-        pts, apply = build(*args, **kwargs)
-        return pts, _ranged("QP clip", apply)
-    return wrapped
-
-
-def install_ranges() -> None:
-    """Replace every function of OPS, in each loaded module of the package
-    that holds it, by its ranged wrapper (before the regulators are
-    built, so that the closures they keep are the wrappers)."""
-    for name, targets in OPS.items():
-        for module, attr in targets:
-            fn = getattr(importlib.import_module(module), attr)
-            new = (_clip_ranged(fn) if name == "QP clip"
-                   else _ranged(name, fn))
-            for mod in list(sys.modules.values()):
-                if getattr(mod, "__name__", "").startswith("hectr_tpu_torch"):
-                    for key, val in list(vars(mod).items()):
-                        if val is fn:
-                            setattr(mod, key, new)
-
-
-@contextlib.contextmanager
-def ranges_on():
-    global _ranges_on
-    _ranges_on = True
-    try:
-        yield
-    finally:
-        _ranges_on = False
-
-
-def by_op(events, steps: int) -> dict:
-    """Device ms and launches per step by op range: each kernel to the
-    innermost range open when its launch (the CUDA runtime event with the
-    kernel's correlation id) was made."""
-    kernels = collections.defaultdict(list)
-    for evt in events:
-        if _is_kernel(evt):
-            kernels[evt.id].append(evt.time_range.end - evt.time_range.start)
-    ranges = sorted((evt.time_range.start, evt.time_range.end,
-                     evt.name[len(RANGE):]) for evt in events
-                    if evt.name.startswith(RANGE)
-                    and str(getattr(evt, "device_type", "")).endswith("CPU"))
-    out = collections.defaultdict(lambda: [0.0, 0])
-    for evt in events:
-        if (str(getattr(evt, "device_type", "")).endswith("CPU")
-                and "LaunchKernel" in evt.name and evt.id in kernels):
-            t = evt.time_range.start
-            name = "other"
-            for start, end, rname in ranges:    # by start: the last is innermost
-                if start > t:
-                    break
-                if t <= end:
-                    name = rname
-            for us in kernels.pop(evt.id):
-                out[name][0] += us
-                out[name][1] += 1
-    unmatched = sum(sum(v) for v in kernels.values())
-    return {
-        "by_op": {name: {"device_ms_per_step": us / 1e3 / steps,
-                         "launches_per_step": n / steps}
-                  for name, (us, n) in sorted(out.items())},
-        "unmatched_kernel_ms_per_step": unmatched / 1e3 / steps}
-
-
-def breakdown(run, steps: int) -> dict:
-    """Profile run() (`steps` regulator steps ending in a synchronize):
-    device ms and launches per step, in all, by kernel and by op."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof, ranges_on():
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    by_kernel = collections.Counter()
+def by_kernel(averages, steps: int) -> dict:
+    """Device ms and launches a step, in all, by kernel and by kernel
+    class, from ``prof.key_averages()``."""
+    us = collections.Counter()
     launches = collections.Counter()
-    for evt in prof.key_averages():
-        if (str(getattr(evt, "device_type", "")).endswith("CUDA")
-                and not evt.key.startswith(RANGE)):
-            by_kernel[evt.key] += _device_us(evt)
+    for evt in averages:
+        if pmu.is_device_op(evt):
+            us[evt.key] += _device_us(evt)
             launches[evt.key] += evt.count
-    device_us = sum(by_kernel.values())
+    device_us = sum(us.values())
     if device_us == 0:
         sys.exit("the profiler recorded no device time")
 
     def share(names):
-        keys = [k for k in by_kernel if any(n in k for n in names)]
-        us = sum(by_kernel[k] for k in keys)
-        return us, {k: {"ms_per_step": by_kernel[k] / 1e3 / steps,
-                        "launches_per_step": launches[k] / steps}
-                    for k in keys}
+        keys = [k for k in us if any(n in k for n in names)]
+        total = sum(us[k] for k in keys)
+        return total, {k: {"ms_per_step": us[k] / 1e3 / steps,
+                           "launches_per_step": launches[k] / steps}
+                       for k in keys}
 
-    ntt_us, ntt = share(NTT_KERNELS)
-    ks_us, ks = share(KEYSWITCH_KERNELS)
-    rns_us, rns = share(RNS_KERNELS)
-    codec_us, codec = share(CODEC_KERNELS)
-    return {
-        "window_steps": steps,
-        "device_ms_per_step": device_us / 1e3 / steps,
-        "kernel_launches_per_step": sum(launches.values()) / steps,
-        "ntt_ms_per_step": ntt_us / 1e3 / steps,
-        "ntt_share": ntt_us / device_us,
-        "ntt_by_kernel": ntt,
-        "keyswitch_ms_per_step": ks_us / 1e3 / steps,
-        "keyswitch_share": ks_us / device_us,
-        "keyswitch_by_kernel": ks,
-        "rns_ms_per_step": rns_us / 1e3 / steps,
-        "rns_share": rns_us / device_us,
-        "rns_by_kernel": rns,
-        "codec_ms_per_step": codec_us / 1e3 / steps,
-        "codec_share": codec_us / device_us,
-        "codec_by_kernel": codec,
-        "busy_share": device_us / 1e6 / wall,
-        "top_ms_per_step": [[k, v / 1e3 / steps,
-                             launches[k] / steps]
-                            for k, v in by_kernel.most_common(10)],
-        **by_op(prof.events(), steps),
-    }
+    out = {"device_ms_per_step": device_us / 1e3 / steps,
+           "kernel_launches_per_step": sum(launches.values()) / steps}
+    for name, names in (("ntt", NTT_KERNELS), ("keyswitch", KEYSWITCH_KERNELS),
+                        ("rns", RNS_KERNELS), ("codec", CODEC_KERNELS)):
+        total, kernels = share(names)
+        out[f"{name}_ms_per_step"] = total / 1e3 / steps
+        out[f"{name}_share"] = total / device_us
+        out[f"{name}_by_kernel"] = kernels
+    out["top_ms_per_step"] = [[k, v / 1e3 / steps, launches[k] / steps]
+                              for k, v in us.most_common(10)]
+    return out
+
+
+def keyswitch_roofline(shapes, kernel_ms: float) -> dict:
+    """The K6-K8 launches counted under `shapes` (keys of
+    ``keyswitch_cuda.LAUNCH_SHAPES``): their least time at the data
+    sheet's bandwidth over `kernel_ms`, their device time."""
+    nbytes = sum(n * bench.keyswitch_launch_work(key)[0]
+                 for key, n in shapes.items())
+    least_ms = nbytes / bench.HBM_BYTES_PER_S * 1e3
+    return {"least_ms": least_ms, "device_ms": kernel_ms,
+            "roofline": least_ms / kernel_ms if kernel_ms else None,
+            "launches": sum(shapes.values())}
+
+
+def profiled(run, steps: int, ranges: bool):
+    """run() under torch.profiler (CPU and CUDA), the port's ranges open
+    or muted: (the profile, host ms a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        with contextlib.nullcontext() if ranges else pmu.muted():
+            t0 = time.perf_counter()
+            run()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+    return prof, ms
+
+
+def profile_loop(label: str, run, steps: int, window: int) -> dict:
+    """run(n): n closed-loop steps of one loop (or batch of loops), ending
+    in a synchronize.  Host clock, recording, profiled windows."""
+    from hectr_tpu_torch.ops import keyswitch_cuda as KC
+
+    def timed(n: int) -> float:
+        t0 = time.perf_counter()
+        run(n)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    run(steps)
+    # the host clock swings between turns: each reading several times, in
+    # turns (plain, recorded, ...; profiled with ranges, muted, ...)
+    clock = {"plain": [], "recorded": []}
+    for _ in range(TURNS):
+        clock["plain"].append(timed(steps))
+        with pmu.recording() as rec:
+            clock["recorded"].append(timed(steps))
+    run(window)
+    KC.reset_launches()
+    prof, first = profiled(lambda: run(window), window, True)
+    shapes = dict(KC.LAUNCH_SHAPES)
+    clock.update(ranges=[first], muted=[])
+    for turn in range(2 * TURNS - 1):
+        ranges = turn % 2 == 1
+        clock["ranges" if ranges else "muted"].append(
+            profiled(lambda: run(window), window, ranges)[1])
+    kernels = by_kernel(prof.key_averages(), window)
+    spans = pmu.by_span(prof.events(), window)
+    roof = keyswitch_roofline(shapes, kernels["keyswitch_ms_per_step"]
+                              * window)
+    out = {"step_ms": {k: [float(np.median(v)), v] for k, v in clock.items()},
+           "window_steps": window, **kernels,
+           **spans, "keyswitch_roofline": roof,
+           "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
+                                for name, row in rec.table.items()}}
+    _print(label, out, rec, steps)
+    return out
+
+
+def _print(label: str, out: dict, rec, steps: int) -> None:
+    err = sys.stderr
+    print(f"== {label}: device {out['device_ms_per_step']:.4f} ms and "
+          f"{out['kernel_launches_per_step']:.2f} launches a step; step ms "
+          "(median, each turn):", file=err)
+    for k, (median, each) in out["step_ms"].items():
+        print(f"{k:10s} {median:9.4f}  " + " ".join(f"{v:.4f}" for v in each),
+              file=err)
+    print("-- device ms and launches a step by span, its longest operations",
+          file=err)
+    for name, row in sorted(out["by_span"].items(),
+                            key=lambda kv: -kv[1]["device_ms_per_step"]):
+        print(f"{name:28s} {row['device_ms_per_step']:9.4f} ms "
+              f"{row['launches_per_step']:8.2f} launches  " + "; ".join(
+                  f"{op[:48]} {ms:.4f}" for op, ms, _ in row["top"]), file=err)
+    print(f"unmatched: {out['unmatched_launches_per_step']:.2f} launches, "
+          f"{out['unmatched_device_ms_per_step']:.4f} ms a step", file=err)
+    print(f"-- idle ms a step by span (window "
+          f"{out['window_ms_per_step']:.4f} ms a step)", file=err)
+    for name, ms in out["idle_ms_per_step"].items():
+        print(f"{name:28s} {ms:9.4f} ms", file=err)
+    r = out["keyswitch_roofline"]
+    print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
+          f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",
+          file=err)
+    print("-- host a step by span (pmu.recording)", file=err)
+    for line in rec.lines(steps):
+        print(line, file=err)
+
+
+def span_off_us(n: int = 200_000) -> dict:
+    """What a span costs with nothing listening, us a call: a `with`
+    block, and a decorated function over the bare one."""
+    def body():
+        with pmu.span("off"):
+            pass
+
+    def bare(a):
+        return a
+    spanned = pmu.span("off")(bare)
+    empty = timeit.timeit(lambda: None, number=n)
+    return {"with_us": (timeit.timeit(body, number=n) - empty) / n * 1e6,
+            "decorated_us": (timeit.timeit(lambda: spanned(1), number=n)
+                             - timeit.timeit(lambda: bare(1), number=n))
+            / n * 1e6}
 
 
 def main() -> None:
@@ -230,18 +222,49 @@ def main() -> None:
     from hectr_tpu_torch.bench.ntt_kernels import card_line
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
     from hectr_tpu_torch.ckks.scheme import TorchSampler
-    from hectr_tpu_torch.config import FLAGSHIP
-    from hectr_tpu_torch.control.simulate import simulate
+    from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC_SECURE
+    from hectr_tpu_torch.control.simulate import simulate, simulate_batch
     from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
     from hectr_tpu_torch.hempc.fused import (make_fused_materials,
                                              make_fused_regulator)
 
-    install_ranges()
     device = torch.device("cuda", torch.cuda.current_device())
     horizon = 4
+    model, plant = cli.cstr_setup()
+    out = {"span_off_us": span_off_us()}
+    print(f"span with nothing listening: {out['span_off_us']}",
+          file=sys.stderr)
+
+    def loop(reg, plants: int = 0):
+        def run(steps):
+            p = cli.disturbance(steps)
+            if plants:
+                scale = np.linspace(0.5, 1.5, plants)[:, None, None]
+                simulate_batch(model, plant, p[None] * scale, 1.0, steps,
+                               device, regulator=reg, horizon=horizon,
+                               regulator_state=hempc_init_state(
+                                   TorchSampler(2, device), device, (plants,)))
+            else:
+                simulate(model, plant, p, 1.0, steps, device, regulator=reg,
+                         horizon=horizon, return_state=True,
+                         regulator_state=hempc_init_state(
+                             TorchSampler(2, device), device))
+            torch.cuda.synchronize()
+        return run
+
+    ctx, keys, rot_keys = cli.hempc_keys(REFERENCE_HEMPC_SECURE, 0, device,
+                                         bsgs_rotations(16))
+    reg = make_hempc_regulator(ctx, keys, rot_keys, model, plant, horizon)
+    out["reference-hempc-secure"] = profile_loop(
+        "reference-hempc-secure, 1 plant", loop(reg), STEPS, WINDOW)
+    out[f"reference-hempc-secure x{SERVED}"] = profile_loop(
+        f"reference-hempc-secure, {SERVED} plants", loop(reg, SERVED), STEPS,
+        WINDOW)
+    del reg, keys, rot_keys
+    torch.cuda.empty_cache()
+
     ctx, keys, rot_keys = cli.hempc_keys(FLAGSHIP, 0, device,
                                          bsgs_rotations(FLAGSHIP.slots))
-    model, plant = cli.cstr_setup()
     regs = {
         "flagship": make_hempc_regulator(ctx, keys, rot_keys, model, plant,
                                          horizon),
@@ -250,38 +273,22 @@ def main() -> None:
             make_fused_materials(ctx, rot_keys, model, plant, horizon,
                                  device)),
     }
-
-    def loop(reg, steps):
-        simulate(model, plant, cli.disturbance(steps), 1.0, steps, device,
-                 regulator=reg, horizon=horizon, return_state=True,
-                 regulator_state=hempc_init_state(TorchSampler(2, device),
-                                                  device))
-        torch.cuda.synchronize()
-
-    out = {}
     for name, reg in regs.items():
-        loop(reg, STEPS)
-        t0 = time.perf_counter()
-        loop(reg, STEPS)
-        rate = STEPS / (time.perf_counter() - t0)
-        loop(reg, WINDOW)
-        out[name] = {"steps_per_s": rate,
-                     **breakdown(lambda reg=reg: loop(reg, WINDOW), WINDOW)}
+        out[name] = profile_loop(name, loop(reg), STEPS, WINDOW)
     del regs, keys, rot_keys
+    torch.cuda.empty_cache()
 
     p_seq = BB.qp_disturbance(plant)
     B0 = BB.qp_envelope(model, plant, p_seq)[0]
     reg = BB.qp_regulator(device, model, plant, B0)
-    BB.qp_closed_loop(reg, model, plant, p_seq[:QP_WINDOW], device)
-    step_s = BB.qp_closed_loop(reg, model, plant, p_seq, device)[3]
-    out["flagship-qp"] = {
-        "steps_per_s": 1 / float(np.median(step_s)),
-        **breakdown(lambda: BB.qp_closed_loop(reg, model, plant,
-                                              p_seq[:QP_WINDOW], device),
-                    QP_WINDOW)}
+
+    def qp(steps):
+        BB.qp_closed_loop(reg, model, plant, p_seq[:steps], device)
+    out["flagship-qp"] = profile_loop("flagship-qp", qp, len(p_seq),
+                                      QP_WINDOW)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "card": card_line(),
-        "torch": torch.__version__, "steps": STEPS, "regulators": out}))
+        "torch": torch.__version__, "steps": STEPS, "loops": out}))
 
 
 if __name__ == "__main__":

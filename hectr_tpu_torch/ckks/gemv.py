@@ -36,6 +36,7 @@ from hectr_tpu_torch.ckks.keyswitch import (
 from hectr_tpu_torch.ckks.modmath import add_mod, add_mod_perm, mod_product_sum
 from hectr_tpu_torch.ckks.scheme import Ciphertext, encode, rescale_pair
 from hectr_tpu_torch.config import resolve_device
+from hectr_tpu_torch.utils.pmu import span
 
 
 def diagonals(M: np.ndarray, slots: int) -> np.ndarray:
@@ -120,6 +121,7 @@ def gemv_materials(ctx: CKKSContext, M: np.ndarray, k: int, rot_keys: dict,
     return build(ctx, diags, active, k, rot_keys, resolve_device(device))
 
 
+@span("scheme.gemv_apply")
 def gemv_apply(ctx: CKKSContext, mat: dict, ct: Ciphertext) -> Ciphertext:
     """Apply an encrypted gemv from its materials (gemv_materials)."""
     if ct.limbs != mat["k"]:
@@ -178,8 +180,9 @@ def _apply_diag(ctx: CKKSContext, d: dict, ct: Ciphertext) -> Ciphertext:
     acc, terms, pts = None, [], []
 
     def fold(acc):
-        s = mod_product_sum(torch.stack(terms, dim=-4),
-                            torch.stack(pts)[:, None], -4, t.p, t.mu, t.k)
+        with span("gemv.group_sum"):
+            s = mod_product_sum(torch.stack(terms, dim=-4),
+                                torch.stack(pts)[:, None], -4, t.p, t.mu, t.k)
         terms.clear()
         pts.clear()
         return s if acc is None else add_mod(acc, s, t.p)
@@ -188,24 +191,27 @@ def _apply_diag(ctx: CKKSContext, d: dict, ct: Ciphertext) -> Ciphertext:
         terms.append(ct.data)
         pts.append(d["pt0"])
     if d["rot"]:
-        digits = decompose_digits(ctx, ct.data[..., 1, :, :])   # hoisted
+        with span("gemv.hoist"):
+            digits = decompose_digits(ctx, ct.data[..., 1, :, :])  # hoisted
         c0 = ct.data[..., 0, :, :]
         for rot in d["rot"]:
-            perm = rot["perm"]
-            ks_ext = _inner_product(ctx, digits, rot["ksk"], k, sliced=True,
-                                    perm=perm)
-            ks = _mod_down_special(ctx, ks_ext, k)          # [..., 2, k, N]
-            terms.append(torch.stack([add_mod_perm(c0, perm, ks[..., 0, :, :],
-                                                   t.p),
-                                      ks[..., 1, :, :]], dim=-3))
-            pts.append(rot["pt"])
+            with span("gemv.baby"):
+                perm = rot["perm"]
+                ks_ext = _inner_product(ctx, digits, rot["ksk"], k,
+                                        sliced=True, perm=perm)
+                ks = _mod_down_special(ctx, ks_ext, k)      # [..., 2, k, N]
+                terms.append(torch.stack(
+                    [add_mod_perm(c0, perm, ks[..., 0, :, :], t.p),
+                     ks[..., 1, :, :]], dim=-3))
+                pts.append(rot["pt"])
             if len(terms) == n1:
                 acc = fold(acc)
     if terms:
         acc = fold(acc)
     if acc is None:
         acc = torch.zeros_like(ct.data)
-    return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))
+    with span("gemv.rescale"):
+        return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))
 
 
 # ---------------------------------------------------------------------------
@@ -252,31 +258,39 @@ def _apply_bsgs(ctx: CKKSContext, b: dict, ct: Ciphertext) -> Ciphertext:
     k = ct.limbs
     pair = ctx.pair_scale(k)
     t = ctx.tables(k, ct.data.device)
-    digits = decompose_digits(ctx, ct.data[..., 1, :, :])  # hoisted babies
+    with span("gemv.hoist"):
+        digits = decompose_digits(ctx, ct.data[..., 1, :, :])  # hoisted babies
     c0 = ct.data[..., 0, :, :]
     C = [ct.data]
     for baby in b["baby"]:
-        perm = baby["perm"]
-        ks_ext = _inner_product(ctx, digits, baby["ksk"], k, sliced=True,
-                                perm=perm)
-        ks = _mod_down_special(ctx, ks_ext, k)
-        C.append(torch.stack([add_mod_perm(c0, perm, ks[..., 0, :, :], t.p),
-                              ks[..., 1, :, :]], dim=-3))
-    C = torch.stack(C, dim=-4)                              # [..., n1, 2, k, N]
+        with span("gemv.baby"):
+            perm = baby["perm"]
+            ks_ext = _inner_product(ctx, digits, baby["ksk"], k, sliced=True,
+                                    perm=perm)
+            ks = _mod_down_special(ctx, ks_ext, k)
+            C.append(torch.stack([add_mod_perm(c0, perm, ks[..., 0, :, :],
+                                               t.p),
+                                  ks[..., 1, :, :]], dim=-3))
+    with span("gemv.stack"):
+        C = torch.stack(C, dim=-4)                      # [..., n1, 2, k, N]
 
     def group_sum(ptg):
         # sum_b C[b] * ptg[b]: reduced products, one sum + Barrett over
         # the baby axis, in one pass (K10) on the card
-        return mod_product_sum(C, ptg[:, None], -4, t.p, t.mu, t.k)
+        with span("gemv.group_sum"):
+            return mod_product_sum(C, ptg[:, None], -4, t.p, t.mu, t.k)
 
     acc = group_sum(b["pt0"]) if "pt0" in b else torch.zeros_like(ct.data)
     for giant in b["giant"]:
-        w = group_sum(giant["pt"])
-        perm = giant["perm"]
-        w1 = w[..., 1, :, :].index_select(-1, perm)
-        dig = decompose_digits(ctx, w1)
-        ks_ext = _inner_product(ctx, dig, giant["ksk"], k, sliced=True)
-        ks = _mod_down_special(ctx, ks_ext, k)
-        w0 = add_mod_perm(w[..., 0, :, :], perm, ks[..., 0, :, :], t.p)
-        acc = add_mod(acc, torch.stack([w0, ks[..., 1, :, :]], dim=-3), t.p)
-    return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))
+        with span("gemv.giant"):
+            w = group_sum(giant["pt"])
+            perm = giant["perm"]
+            w1 = w[..., 1, :, :].index_select(-1, perm)
+            dig = decompose_digits(ctx, w1)
+            ks_ext = _inner_product(ctx, dig, giant["ksk"], k, sliced=True)
+            ks = _mod_down_special(ctx, ks_ext, k)
+            w0 = add_mod_perm(w[..., 0, :, :], perm, ks[..., 0, :, :], t.p)
+            acc = add_mod(acc, torch.stack([w0, ks[..., 1, :, :]], dim=-3),
+                          t.p)
+    with span("gemv.rescale"):
+        return rescale_pair(ctx, Ciphertext(data=acc, scale=ct.scale * pair))

@@ -51,6 +51,7 @@ from hectr_tpu_torch.ckks.modmath import (
 from hectr_tpu_torch.ckks.ntt import bit_reverse_indices, intt, ntt
 from hectr_tpu_torch.ckks.scheme import Ciphertext, KeySet, Sampler
 from hectr_tpu_torch.config import resolve_device
+from hectr_tpu_torch.utils.pmu import span
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +213,7 @@ def slice_key(ctx: CKKSContext, ksk: torch.Tensor, k: int) -> torch.Tensor:
     return ksk.index_select(2, rows.to(ksk.device))
 
 
+@span("keyswitch.modup")
 def decompose_digits(ctx: CKKSContext, c1: torch.Tensor) -> torch.Tensor:
     """NTT-domain poly [..., k, N] -> extended NTT-domain digits
     [..., dnum(k), k+S, N]: per-group centered residues base-extended to
@@ -232,6 +234,7 @@ def decompose_digits(ctx: CKKSContext, c1: torch.Tensor) -> torch.Tensor:
     return ntt(ext, ctx.tables_ks(k, device))
 
 
+@span("keyswitch.inner_product")
 def _inner_product(ctx: CKKSContext, digits: torch.Tensor, ksk: torch.Tensor,
                    k: int, sliced: bool = False,
                    perm: torch.Tensor | None = None) -> torch.Tensor:
@@ -279,6 +282,7 @@ def key_inner_product_plain(digits: torch.Tensor, ksk_l: torch.Tensor,
     return sum_mod(prod, -4, t.p, t.mu, t.k)
 
 
+@span("keyswitch.mod_down")
 def _mod_down_special(ctx: CKKSContext, acc: torch.Tensor, k: int) -> torch.Tensor:
     """Divide the extended result by P = prod(special primes):
     (acc_t - [acc]_P) * P^-1 mod p_t with centered [acc]_P.
@@ -345,6 +349,7 @@ def rotate(ctx: CKKSContext, ct: Ciphertext, r: int,
                       scale=ct.scale)
 
 
+@span("scheme.mul_ct")
 def mul_ct(ctx: CKKSContext, a: Ciphertext, b: Ciphertext,
            relin_key: torch.Tensor) -> Ciphertext:
     """ct x ct multiply + relinearise; scales multiply (rescale

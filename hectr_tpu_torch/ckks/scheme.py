@@ -48,6 +48,7 @@ from hectr_tpu_torch.ckks.modmath import (
 from hectr_tpu_torch.ckks.ntt import intt, ntt
 from hectr_tpu_torch.config import resolve_device
 from hectr_tpu_torch.ops import codec_cuda
+from hectr_tpu_torch.utils.pmu import span
 
 SIGMA = 3.2  # RLWE noise standard deviation (standard CKKS choice)
 
@@ -171,6 +172,7 @@ def keygen(ctx: CKKSContext, sampler: Sampler, device) -> KeySet:
     return KeySet(sk=sk, pk=torch.stack([b, a]))
 
 
+@span("scheme.encrypt")
 def encrypt(ctx: CKKSContext, keys: KeySet, pt: Plaintext,
             sampler: Sampler) -> Ciphertext:
     """Public-key encryption: (v pk0 + e0 + m, v pk1 + e1).  A plaintext
@@ -189,6 +191,7 @@ def encrypt(ctx: CKKSContext, keys: KeySet, pt: Plaintext,
     return Ciphertext(data=torch.stack([c0, c1], dim=-3), scale=pt.scale)
 
 
+@span("scheme.decrypt")
 def decrypt(ctx: CKKSContext, keys: KeySet, ct: Ciphertext) -> Plaintext:
     """m = c0 + c1 * s; returns the NTT-domain plaintext."""
     k = ct.limbs
@@ -203,6 +206,7 @@ def decrypt(ctx: CKKSContext, keys: KeySet, ct: Ciphertext) -> Plaintext:
 # ---------------------------------------------------------------------------
 
 
+@span("scheme.encode")
 def encode(ctx: CKKSContext, v, k: int,
            scale: Fraction | None = None) -> Plaintext:
     """Slot values [..., slots] -> NTT-domain plaintext over the first k
@@ -241,6 +245,7 @@ def encode_embedded_plain(ctx: CKKSContext, m: torch.Tensor, k: int,
                                                      ctx.n), t), scale=scale)
 
 
+@span("scheme.decode_ri")
 def decode_ri(ctx: CKKSContext, pt: Plaintext) -> tuple[torch.Tensor, torch.Tensor]:
     """NTT-domain plaintext [..., K, N] -> slot values as an (re, im)
     pair of float64 [..., slots] tensors, via the double-double
@@ -324,21 +329,25 @@ def _common(ctx: CKKSContext, a: Ciphertext, b: Ciphertext):
     return ctx.tables(a.limbs, a.data.device)
 
 
+@span("scheme.add")
 def add(ctx: CKKSContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     t = _common(ctx, a, b)
     return Ciphertext(data=add_mod(a.data, b.data, t.p), scale=a.scale)
 
 
+@span("scheme.sub")
 def sub(ctx: CKKSContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     t = _common(ctx, a, b)
     return Ciphertext(data=sub_mod(a.data, b.data, t.p), scale=a.scale)
 
 
+@span("scheme.neg")
 def neg(ctx: CKKSContext, a: Ciphertext) -> Ciphertext:
     t = ctx.tables(a.limbs, a.data.device)
     return Ciphertext(data=neg_mod(a.data, t.p), scale=a.scale)
 
 
+@span("scheme.add_pt")
 def add_pt(ctx: CKKSContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
     if a.limbs != pt.limbs or a.scale != pt.scale:
         raise ValueError("plaintext level or scale differs from ciphertext")
@@ -349,6 +358,7 @@ def add_pt(ctx: CKKSContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
         scale=a.scale)
 
 
+@span("scheme.mul_pt")
 def mul_pt(ctx: CKKSContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
     """ct x pt product; scales multiply (rescale separately)."""
     if a.limbs != pt.limbs:
@@ -382,6 +392,7 @@ def _drop_one(ctx: CKKSContext, data: torch.Tensor) -> torch.Tensor:
     return mod_down_tail(data[..., :d, :], ext, inv, inv_sh, t_out.p)
 
 
+@span("scheme.rescale_pair")
 def rescale_pair(ctx: CKKSContext, a: Ciphertext) -> Ciphertext:
     """Divide by the trailing scale-prime pair (one CKKS level)."""
     k = a.limbs
@@ -389,11 +400,13 @@ def rescale_pair(ctx: CKKSContext, a: Ciphertext) -> Ciphertext:
     return Ciphertext(data=data, scale=a.scale / ctx.pair_scale(k))
 
 
+@span("scheme.mod_down_pair")
 def mod_down_pair(ctx: CKKSContext, a: Ciphertext) -> Ciphertext:
     """Drop the trailing scale pair WITHOUT dividing (he_moddown)."""
     return Ciphertext(data=a.data[..., :-2, :], scale=a.scale)
 
 
+@span("scheme.mod_down_to")
 def mod_down_to(ctx: CKKSContext, a: Ciphertext, k: int) -> Ciphertext:
     """Drop trailing limbs down to k without dividing."""
     if a.limbs < k:

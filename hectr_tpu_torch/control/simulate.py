@@ -36,6 +36,7 @@ from hectr_tpu_torch.control.stages import (
     selector_matrix,
     weighting_matrices,
 )
+from hectr_tpu_torch.utils.pmu import span
 from hectr_tpu_torch.utils.rows import matvec
 
 
@@ -174,41 +175,49 @@ def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
     nx = np.shape(model.C)[1]
     nu = np.shape(model.B)[1]
     lead = p_seq.shape[:-2]
-    Lx, Ld = estimator_gains(model.A, model.B, model.C, model.Bd, model.Cd,
-                             plant.xs)
-    Ginv = selector_matrix(model.A, model.B, model.C, model.Hr)
+    with span("loop.episode_start"):
+        Lx, Ld = estimator_gains(model.A, model.B, model.C, model.Bd,
+                                 model.Cd, plant.xs)
+        Ginv = selector_matrix(model.A, model.B, model.C, model.Hr)
 
-    def f64(m):
-        return torch.as_tensor(np.asarray(m, dtype=np.float64), device=device)
+        def f64(m):
+            return torch.as_tensor(np.asarray(m, dtype=np.float64),
+                                   device=device)
 
-    A, B, C, Bd, Cd, Hr = (f64(m) for m in (model.A, model.B, model.C,
-                                            model.Bd, model.Cd, model.Hr))
-    Lx, Ld, Ginv = f64(Lx), f64(Ld), f64(Ginv)
-    xs, us, ps = f64(plant.xs), f64(plant.us), f64(plant.ps)
-    rsp_v = torch.zeros((*lead, nu), dtype=torch.float64, device=device) \
-        if rsp is None else f64(rsp)
-    p_seq = f64(p_seq)
+        A, B, C, Bd, Cd, Hr = (f64(m) for m in (model.A, model.B, model.C,
+                                                model.Bd, model.Cd, model.Hr))
+        Lx, Ld, Ginv = f64(Lx), f64(Ld), f64(Ginv)
+        xs, us, ps = f64(plant.xs), f64(plant.us), f64(plant.ps)
+        rsp_v = torch.zeros((*lead, nu), dtype=torch.float64, device=device) \
+            if rsp is None else f64(rsp)
+        p_seq = f64(p_seq)
 
-    x = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
-    xhatm = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
-    dhatm = torch.zeros((*lead, model.Bd.shape[1]), dtype=torch.float64,
-                        device=device)
-    u = torch.zeros((*lead, nu), dtype=torch.float64, device=device)
+        x = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
+        xhatm = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
+        dhatm = torch.zeros((*lead, model.Bd.shape[1]), dtype=torch.float64,
+                            device=device)
+        u = torch.zeros((*lead, nu), dtype=torch.float64, device=device)
     reg_state = regulator_state
     x_traj, u_traj = [], []
     for k in range(N):
-        y = measure(C, x)
-        xhat, dhat = measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm)
-        xr, ur = select_target(Bd, Cd, Hr, Ginv, dhat, rsp_v)
+        with span("loop.measure_update", k):
+            y = measure(C, x)
+            xhat, dhat = measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm)
+        with span("loop.selector", k):
+            xr, ur = select_target(Bd, Cd, Hr, Ginv, dhat, rsp_v)
         uhat = ur if k == 0 else u
-        u, reg_state = regulator(reg_state, xhat, uhat, xr, ur)
+        with span("loop.regulator", k):
+            u, reg_state = regulator(reg_state, xhat, uhat, xr, ur)
         x_traj.append(x)
         u_traj.append(u)
-        x = actuate(plant.ode, plant.jacobian, x, u, p_seq[..., k, :], xs, us,
-                    ps, dt)
-        xhatm, dhatm = estimate_forward(A, B, Bd, xhat, dhat, u)
+        with span("loop.plant", k):
+            x = actuate(plant.ode, plant.jacobian, x, u, p_seq[..., k, :], xs,
+                        us, ps, dt)
+        with span("loop.time_update", k):
+            xhatm, dhatm = estimate_forward(A, B, Bd, xhat, dhat, u)
     x_traj.append(x)
 
-    x_all = (torch.stack(x_traj, dim=-2) + xs).cpu().numpy()
-    u_all = (torch.stack(u_traj, dim=-2) + us).cpu().numpy()
+    with span("loop.trajectories"):
+        x_all = (torch.stack(x_traj, dim=-2) + xs).cpu().numpy()
+        u_all = (torch.stack(u_traj, dim=-2) + us).cpu().numpy()
     return x_all, u_all, reg_state

@@ -43,6 +43,7 @@ from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.gemv import gemv_apply, gemv_materials
 from hectr_tpu_torch.ckks.keyswitch import mul_ct
 from hectr_tpu_torch.ckks.scheme import Ciphertext, Plaintext, mod_down_to
+from hectr_tpu_torch.utils.pmu import span
 from hectr_tpu_torch.utils.rows import matvec
 
 
@@ -238,6 +239,7 @@ def _clip_build(ctx: CKKSContext, lb: np.ndarray, ub: np.ndarray, k: int,
                "q1": const(q[1], k - 4, P3),
                "mid": const(out_mid, k - 6, delta)}
 
+        @span("scheme.clip")
         def apply(w: Ciphertext, relin_key) -> Ciphertext:
             check(w)
             t = S.rescale_pair(ctx, mul_ct(ctx, w, w, relin_key))
@@ -264,6 +266,7 @@ def _clip_build(ctx: CKKSContext, lb: np.ndarray, ub: np.ndarray, k: int,
            "q7": const(q[7], k - 6, P4 * delta / s_d7),
            "mid": const(out_mid, k - 8, delta)}
 
+    @span("scheme.clip")
     def apply(w: Ciphertext, relin_key) -> Ciphertext:
         check(w)
         w2 = S.rescale_pair(ctx, mul_ct(ctx, w, w, relin_key))   # s_y, k-2

@@ -22,10 +22,13 @@ The kernels are compiled from the repository's source with nvcc at first
 use (``hectr_tpu_torch.ops.build``) and bound through a plain C interface
 with ctypes; nothing here touches CUDA or nvcc at import time.
 
-Each wrapper adds one to ``LAUNCHES[name]`` (and to ``LAUNCH_SHAPES``
-under (name, input shape)) where it launches its kernel, and nowhere
-else.  Each raises on a tensor off the card, of another dtype than int64,
-or of a shape the kernel does not take.
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
+and nowhere else, and one to ``LAUNCH_SHAPES`` under a key from which
+``bench.keyswitch_launch_work`` prices the launch: ("base_convert", input
+shape as [..., G, A, C] (G = 1 for the one-group form), targets),
+("key_inner_product", digits shape, key shape, permuted) and
+("mod_down_tail", input shape).  Each raises on a tensor off the card, of
+another dtype than int64, or of a shape the kernel does not take.
 """
 
 from __future__ import annotations
@@ -101,10 +104,10 @@ def _on_card(name: str, **tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def _launch(name: str, lib, rc: int, shape) -> None:
+def _launch(name: str, lib, rc: int, *key) -> None:
     raise_on(lib, rc, name)
     LAUNCHES[name] += 1
-    LAUNCH_SHAPES[name, tuple(shape)] += 1
+    LAUNCH_SHAPES[(name, *key)] += 1
 
 
 def base_convert_cuda(x: torch.Tensor, c, grouped: bool) -> torch.Tensor:
@@ -142,7 +145,7 @@ def base_convert_cuda(x: torch.Tensor, c, grouped: bool) -> torch.Tensor:
         rc = lib.hectr_base_convert(x.data_ptr(), out.data_ptr(),
                                     *(t.data_ptr() for t in consts.values()),
                                     lead, G, A, T, C, stream)
-    _launch(name, lib, rc, x.shape)
+    _launch(name, lib, rc, (*x.shape[:-1 - len(want)], G, A, C), T)
     return out
 
 
@@ -182,7 +185,8 @@ def key_inner_product_cuda(digits: torch.Tensor, ksk_l: torch.Tensor,
             digits.data_ptr(), ksk_l.data_ptr(),
             None if perm is None else perm.data_ptr(), out.data_ptr(),
             p.data_ptr(), lead, dnum, R, C, int(ksk_l.shape[1] == 4), stream)
-    _launch(name, lib, rc, digits.shape)
+    _launch(name, lib, rc, tuple(digits.shape), tuple(ksk_l.shape),
+            perm is not None)
     return out
 
 
@@ -238,5 +242,5 @@ def mod_down_tail_cuda(acc_k: torch.Tensor, ext: torch.Tensor,
                                      pinv.data_ptr(), pinv_sh.data_ptr(),
                                      p.data_ptr(), out.data_ptr(), lead, R, C,
                                      stream)
-    _launch(name, lib, rc, acc_k.shape)
+    _launch(name, lib, rc, tuple(acc_k.shape))
     return out

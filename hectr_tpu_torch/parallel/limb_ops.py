@@ -94,6 +94,7 @@ from hectr_tpu_torch.ckks.scheme import (
 )
 from hectr_tpu_torch.ckks.scheme_ops import traced
 from hectr_tpu_torch.parallel import LimbCiphertext, LimbPlaintext, LimbRows
+from hectr_tpu_torch.utils.pmu import span
 
 WIRE_BYTES = 4       # a residue on the wire (int32)
 
@@ -222,6 +223,7 @@ class LimbOps:
             raise ValueError(f"operands differ: {a.limbs} vs {b.limbs} limbs, "
                              f"scales {a.scale} vs {b.scale}")
 
+    @span("scheme.add")
     @traced
     def add(self, a: LimbCiphertext, b: LimbCiphertext) -> LimbCiphertext:
         self._same(a, b)
@@ -229,6 +231,7 @@ class LimbOps:
                                         a.limbs, a.parts, b.parts),
                               a.scale, a.limbs)
 
+    @span("scheme.sub")
     @traced
     def sub(self, a: LimbCiphertext, b: LimbCiphertext) -> LimbCiphertext:
         self._same(a, b)
@@ -236,11 +239,13 @@ class LimbOps:
                                         a.limbs, a.parts, b.parts),
                               a.scale, a.limbs)
 
+    @span("scheme.neg")
     @traced
     def neg(self, a: LimbCiphertext) -> LimbCiphertext:
         return LimbCiphertext(self._map(lambda t, x: neg_mod(x, t.p), a.limbs,
                                         a.parts), a.scale, a.limbs)
 
+    @span("scheme.add_pt")
     @traced
     def add_pt(self, a: LimbCiphertext, pt: LimbPlaintext) -> LimbCiphertext:
         self._same(a, pt)
@@ -251,6 +256,7 @@ class LimbOps:
         return LimbCiphertext(self._map(one, a.limbs, a.parts, pt.parts),
                               a.scale, a.limbs)
 
+    @span("scheme.mul_pt")
     @traced
     def mul_pt(self, a: LimbCiphertext, pt: LimbPlaintext) -> LimbCiphertext:
         if a.limbs != pt.limbs:
@@ -259,6 +265,7 @@ class LimbOps:
             lambda t, x, m: mul_mod(x, m.unsqueeze(-3), t.p, t.mu, t.k),
             a.limbs, a.parts, pt.parts), a.scale * pt.scale, a.limbs)
 
+    @span("scheme.mod_down_to")
     @traced
     def mod_down_to(self, a: LimbCiphertext, k: int) -> LimbCiphertext:
         """Drop trailing limbs down to k without dividing."""
@@ -268,6 +275,7 @@ class LimbOps:
             x[..., :self.rows.data_sizes(k)[s], :]
             for s, x in zip(self.held, a.parts)), a.scale, k)
 
+    @span("scheme.mod_down_pair")
     @traced
     def mod_down_pair(self, a: LimbCiphertext) -> LimbCiphertext:
         return self.mod_down_to(a, a.limbs - 2)
@@ -280,6 +288,7 @@ class LimbOps:
     # encode / encrypt / decrypt / decode
     # ------------------------------------------------------------------
 
+    @span("scheme.encode")
     @traced
     def encode(self, v, k: int) -> LimbPlaintext:
         """``scheme.encode``: slot values -> each shard's rows of the
@@ -317,6 +326,7 @@ class LimbOps:
             parts.append(_ntt(rows(t.p), t))
         return LimbPlaintext(tuple(parts), self.ctx.delta, k)
 
+    @span("scheme.encrypt")
     @traced
     def encrypt(self, keys: LimbKeys, pt: LimbPlaintext,
                 sampler) -> LimbCiphertext:
@@ -337,6 +347,7 @@ class LimbOps:
         return LimbCiphertext(self._map(one, k, pt.parts, keys.pk), pt.scale,
                               k)
 
+    @span("scheme.decrypt")
     @traced
     def decrypt(self, keys: LimbKeys, ct: LimbCiphertext) -> LimbPlaintext:
         def one(t, x, sk):
@@ -347,6 +358,7 @@ class LimbOps:
         return LimbPlaintext(self._map(one, ct.limbs, ct.parts, keys.sk),
                              ct.scale, ct.limbs)
 
+    @span("scheme.decode_ri")
     def decode_ri(self, pt: LimbPlaintext) -> tuple[torch.Tensor, torch.Tensor]:
         """``scheme.decode_ri``: each shard's CRT digits over the base
         chain, gathered in row order, then the double-double sum and the
@@ -399,6 +411,7 @@ class LimbOps:
             out.append(mul_mod_shoup(diff, inv[lo:hi], inv_sh[lo:hi], t.p))
         return tuple(out)
 
+    @span("scheme.rescale_pair")
     @traced
     def rescale_pair(self, a: LimbCiphertext) -> LimbCiphertext:
         """Divide by the trailing scale-prime pair (one CKKS level),
@@ -411,6 +424,7 @@ class LimbOps:
     # key switching
     # ------------------------------------------------------------------
 
+    @span("keyswitch.modup")
     def decompose(self, parts, k: int) -> tuple:
         """``keyswitch.decompose_digits`` on a level-k poly's shards ->
         each shard's rows of the extended digits [..., dnum, r, N]: its
@@ -435,6 +449,7 @@ class LimbOps:
                             self._tables(primes, device)))
         return tuple(out)
 
+    @span("keyswitch.inner_product")
     def _inner(self, digits, keys, k: int) -> tuple:
         """Key-switch inner product per shard: digits and the level-k key
         share the row map."""
@@ -442,6 +457,7 @@ class LimbOps:
             self._data(s, k) + self._special(s), dg.device))
             for s, dg, key in zip(self.held, digits, keys))
 
+    @span("keyswitch.mod_down")
     def _mod_down(self, acc, k: int) -> tuple:
         """``keyswitch._mod_down_special`` on each shard's [..., r, N]
         (data rows, then special rows) -> its data rows."""
@@ -491,6 +507,7 @@ class LimbOps:
                                           w[..., 1, :, :]], dim=-3),
             k, c0r, ks), ct.scale, k)
 
+    @span("scheme.mul_ct")
     @traced
     def mul_ct(self, a: LimbCiphertext, b: LimbCiphertext,
                relin_key) -> LimbCiphertext:
@@ -539,6 +556,7 @@ class LimbOps:
             return node
         return shard(G.gemv_materials(self.ctx, M, k, rot_keys, device, method))
 
+    @span("scheme.gemv_apply")
     @traced
     def gemv_apply(self, mat: dict, ct: LimbCiphertext) -> LimbCiphertext:
         """``gemv.gemv_apply`` on sharded materials; consumes one level."""

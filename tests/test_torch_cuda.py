@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from chip_smoke import ROW_SHAPES, facade_problem, sweep_chain
+from hectr_tpu_torch import bench
 from hectr_tpu_torch import config as cfg
 from hectr_tpu_torch.ckks import keyswitch as K
 from hectr_tpu_torch.ckks import ntt as T
@@ -1008,6 +1009,10 @@ def test_every_key_switch_path_reaches_k6_k8_and_equals_cpu(
     torch.cuda.synchronize()
     assert all(n > 0 for n in KC.LAUNCHES.values()), KC.LAUNCHES
     assert torch.equal(got.cpu(), want)
+    # every launch counted under a key that prices it
+    assert sum(KC.LAUNCH_SHAPES.values()) == sum(KC.LAUNCHES.values())
+    for key in KC.LAUNCH_SHAPES:
+        assert bench.keyswitch_launch_work(key)[0] > 0, key
 
 
 def test_keyswitch_wrappers_refuse_on_the_card(cuda_device):
