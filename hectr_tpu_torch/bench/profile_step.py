@@ -24,7 +24,15 @@ cost.  The last recording and the first profiled window are reduced:
   * the K6-K8 roofline: the least time of the launches counted in
     ``ops.keyswitch_cuda.LAUNCH_SHAPES`` (each launch's bytes,
     ``bench.keyswitch_launch_work``, at the data sheet's bandwidth) over
-    the kernels' device time.
+    the kernels' device time;
+  * the regulator's CUDA-graph captures, replays and uncaptured calls
+    over the loop's runs (``pmu.COUNTS``), and the device ms and launches
+    a step under ``regulator.replay``.  A replayed step opens no
+    ``scheme.*``, ``gemv.*`` or ``keyswitch.*`` span: its kernels all
+    fall under ``regulator.replay``.
+
+Each loop keeps one encryption sampler over its runs, so its regulator
+captures once (in the first, warm run) and replays after.
 
 The tables go to standard error; the last line of standard output is one
 JSON object.  Also printed: what a span costs on this host with nothing
@@ -131,6 +139,8 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
     in a synchronize.  Host clock, recording, profiled windows."""
     from hectr_tpu_torch.ops import keyswitch_cuda as KC
 
+    pmu.reset_counts()
+
     def timed(n: int) -> float:
         t0 = time.perf_counter()
         run(n)
@@ -160,6 +170,9 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
     out = {"step_ms": {k: [float(np.median(v)), v] for k, v in clock.items()},
            "window_steps": window, **kernels,
            **spans, "keyswitch_roofline": roof,
+           "regulator_counts": {k: v for k, v in pmu.COUNTS.items()
+                                if k.startswith("regulator.")},
+           "regulator_replay": spans["by_span"].get("regulator.replay"),
            "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
                                 for name, row in rec.table.items()}}
     _print(label, out, rec, steps)
@@ -187,6 +200,8 @@ def _print(label: str, out: dict, rec, steps: int) -> None:
           f"{out['window_ms_per_step']:.4f} ms a step)", file=err)
     for name, ms in out["idle_ms_per_step"].items():
         print(f"{name:28s} {ms:9.4f} ms", file=err)
+    print(f"-- regulator: {out['regulator_counts']}; under regulator.replay "
+          f"{out['regulator_replay']}", file=err)
     r = out["keyswitch_roofline"]
     print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
           f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",
@@ -236,6 +251,8 @@ def main() -> None:
           file=sys.stderr)
 
     def loop(reg, plants: int = 0):
+        sampler = TorchSampler(2, device)
+
         def run(steps):
             p = cli.disturbance(steps)
             if plants:
@@ -243,12 +260,11 @@ def main() -> None:
                 simulate_batch(model, plant, p[None] * scale, 1.0, steps,
                                device, regulator=reg, horizon=horizon,
                                regulator_state=hempc_init_state(
-                                   TorchSampler(2, device), device, (plants,)))
+                                   sampler, device, (plants,)))
             else:
                 simulate(model, plant, p, 1.0, steps, device, regulator=reg,
                          horizon=horizon, return_state=True,
-                         regulator_state=hempc_init_state(
-                             TorchSampler(2, device), device))
+                         regulator_state=hempc_init_state(sampler, device))
             torch.cuda.synchronize()
         return run
 
@@ -281,9 +297,12 @@ def main() -> None:
     p_seq = BB.qp_disturbance(plant)
     B0 = BB.qp_envelope(model, plant, p_seq)[0]
     reg = BB.qp_regulator(device, model, plant, B0)
+    sampler = TorchSampler(54, device)
 
     def qp(steps):
-        BB.qp_closed_loop(reg, model, plant, p_seq[:steps], device)
+        BB.closed_loop(model, plant, p_seq[:steps], device, reg,
+                       hempc_init_state(sampler, device))
+        torch.cuda.synchronize()
     out["flagship-qp"] = profile_loop("flagship-qp", qp, len(p_seq),
                                       QP_WINDOW)
     print(json.dumps({

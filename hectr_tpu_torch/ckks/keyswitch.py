@@ -201,16 +201,23 @@ def _ks_constants(ctx: CKKSContext, k: int, device):
     return _ks_constants_dev(ctx, k, resolve_device(device))
 
 
+@functools.cache
+def _key_rows(ctx: CKKSContext, k: int, device: torch.device) -> torch.Tensor:
+    """The rows of a top-level key that a k-limb operand reads, on
+    `device` (cached: no copy from the host in a step, which a CUDA
+    graph's capture refuses)."""
+    ns = len(ctx.special_primes)
+    return torch.cat([torch.arange(k), torch.arange(
+        ctx.max_limbs, ctx.max_limbs + ns)]).to(device)
+
+
 def slice_key(ctx: CKKSContext, ksk: torch.Tensor, k: int) -> torch.Tensor:
     """Slice a top-level switching key [dnum_max, 4 or 2, K_max+S, N] to
     a k-limb operand: first dnum(k) digits, data rows [0,k) + specials."""
     ksk = ksk[:ctx.dnum(k)]
     if k == ctx.max_limbs:
         return ksk
-    ns = len(ctx.special_primes)
-    rows = torch.cat([torch.arange(k),
-                      torch.arange(ctx.max_limbs, ctx.max_limbs + ns)])
-    return ksk.index_select(2, rows.to(ksk.device))
+    return ksk.index_select(2, _key_rows(ctx, k, ksk.device))
 
 
 @span("keyswitch.modup")

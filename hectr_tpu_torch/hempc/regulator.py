@@ -21,6 +21,15 @@ on one device, or a limb mesh's ``parallel.limb_ops.LimbOps``, which
 runs it with every ciphertext, key and gemv material sharded by RNS row
 (the JAX package's ``key_sharding`` / ``ct_sharding``), bit-identical
 to the single device.
+
+On one CUDA device, with the encryption draws from a ``TorchSampler``
+there, the closure replays the whole step as one CUDA graph
+(``StepGraph``): some 270 launches at one plant cost the host one graph
+launch and a few copies.  The sampler's generator is registered with the
+graph, so every replay draws what the uncaptured step would, and the
+moves, states and canaries are bit-equal to it.  Anywhere else (a limb
+mesh, the CPU, an injected sampler, an op set that traces) the step runs
+uncaptured.
 """
 
 from __future__ import annotations
@@ -29,12 +38,14 @@ import numpy as np
 import torch
 
 from hectr_tpu_torch.ckks.context import CKKSContext
-from hectr_tpu_torch.ckks.scheme import KeySet, Sampler
+from hectr_tpu_torch.ckks.scheme import KeySet, Sampler, TorchSampler
 from hectr_tpu_torch.ckks.scheme_ops import SchemeOps
 from hectr_tpu_torch.control.mpc import mpc_gains, mpc_hessian
 from hectr_tpu_torch.control.simulate import LinearModel, Plant
 from hectr_tpu_torch.control.stages import weighting_matrices
 from hectr_tpu_torch.hempc.qp_enc import make_encrypted_pgd
+from hectr_tpu_torch.ops.launches import Replayed
+from hectr_tpu_torch.utils import pmu
 
 
 def regulator_gains(model: LinearModel, plant: Plant, horizon: int):
@@ -72,6 +83,56 @@ def _zero_extend(v: torch.Tensor, zeros: torch.Tensor):
     return zre, zeros.expand(*lead, -1)
 
 
+class StepGraph:
+    """A regulator step (state, xhat, uhat, xr, ur) -> (u, state) as one
+    CUDA graph, for one key: the shapes and dtypes of the four inputs
+    and the canary, and the sampler's generator.  A call with a new key
+    frees the graph it holds, runs the step uncaptured (a real step,
+    which also fills every table and plan cache the step reads), then
+    captures it with the generator registered; a call with the key
+    copies its inputs into the graph's and replays it.  The move and the
+    canary it returns are copies, never the graph's own outputs."""
+
+    def __init__(self, step):
+        self.step = step
+        self.key = None
+        self.graph = None
+        self.inputs = self.outputs = ()
+        self.launches = Replayed()
+
+    def __call__(self, state, *vs):
+        sampler, canary = state
+        tensors = (*vs, canary)
+        key = (sampler.gen, *[(t.shape, t.dtype) for t in tensors])
+        if key != self.key:
+            return self._capture(key, sampler, tensors)
+        pmu.count("regulator.replay")
+        with pmu.span("regulator.replay"):
+            for held, t in zip(self.inputs, tensors):
+                held.copy_(t)
+            self.graph.replay()
+            self.launches.replay()
+            u, c = self.outputs
+            return u.clone(), (sampler, c.clone())
+
+    def _capture(self, key, sampler, tensors):
+        self.key = self.graph = None
+        self.inputs = self.outputs = ()
+        pmu.count("regulator.uncaptured")
+        out = self.step((sampler, tensors[-1]), *tensors[:-1])
+        with pmu.span("regulator.capture"):
+            inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                           for t in tensors)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(sampler.gen)
+            with self.launches.capture(), torch.cuda.graph(graph):
+                u, (_, c) = self.step((sampler, inputs[-1]), *inputs[:-1])
+        self.key, self.graph = key, graph
+        self.inputs, self.outputs = inputs, (u, c)
+        pmu.count("regulator.capture")
+        return out
+
+
 def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
                          model: LinearModel, plant: Plant, horizon: int,
                          bounds=None, relin_key=None, qp_iters: int = 2,
@@ -92,7 +153,17 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
     device, when None; a ``LimbOps`` over the context and a mesh shards
     the keys, gemv materials and ciphertexts by row, and its counters and
     trace are the caller's to read.  The encrypted QP runs on the single
-    device only."""
+    device only.
+
+    Where `ops` is the single device's ``SchemeOps`` (not tracing), the
+    inputs lie on a CUDA device and the state's sampler is a
+    ``TorchSampler`` there, the step replays as one CUDA graph
+    (``StepGraph``; one graph a closure, captured again when the inputs'
+    shapes or the sampler change); elsewhere it runs uncaptured.  Either
+    way ``pmu.COUNTS`` counts the calls: ``regulator.capture``,
+    ``regulator.replay`` and ``regulator.uncaptured`` (a capture's first,
+    uncaptured step among them).  The uncaptured step is the closure's
+    ``uncaptured``."""
     ny, nx = np.shape(model.C)
     nu = np.shape(model.B)[1]
     if ctx.slots < nu * horizon:
@@ -134,7 +205,7 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
         return ops.encrypt(held_keys, ops.encode(_zero_extend(v, zeros),
                                                  k_top), sampler)
 
-    def regulator(state, xhat, uhat, xr, ur):
+    def step(state, xhat, uhat, xr, ur):
         sampler, canary = state
         xhat, uhat, xr, ur = broadcast_loops(xhat, uhat, xr, ur)
         ct_xhat = enc_vec(xhat, sampler)
@@ -156,4 +227,20 @@ def make_hempc_regulator(ctx: CKKSContext, keys: KeySet, rot_keys: dict,
         canary = torch.maximum(canary, torch.abs(im).amax(-1))
         return re[..., :nu], (sampler, canary)
 
+    graph = StepGraph(step) if type(ops) is SchemeOps else None
+
+    def regulator(state, xhat, uhat, xr, ur):
+        sampler, canary = state
+        # a tracing op set keeps each op's result: only an uncaptured
+        # step makes them
+        if (graph is not None and ops.trace is None
+                and type(sampler) is TorchSampler
+                and sampler.device.type == "cuda"
+                and all(t.device == sampler.device
+                        for t in (xhat, uhat, xr, ur, canary))):
+            return graph(state, xhat, uhat, xr, ur)
+        pmu.count("regulator.uncaptured")
+        return step(state, xhat, uhat, xr, ur)
+
+    regulator.uncaptured = step
     return regulator

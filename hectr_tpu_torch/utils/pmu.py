@@ -15,6 +15,10 @@ the profiler's clock, and each launch made inside it carries its
 correlation id, so ``by_span`` can split a trace's device time, launches
 and idle gaps by span.  Inside ``recording()`` it keeps its start and
 end on the host clock, without the profiler.
+
+``count(name)`` adds one to ``COUNTS[name]``: how often a path was taken
+(the regulator's CUDA-graph captures, replays and uncaptured calls), as
+the kernels' wrappers count their launches.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ TOP = 5                    # operations ``by_span`` names for each span
 _profiler = torch.autograd.profiler
 _recording = None          # the open ``Recording``, if any
 _clock = time.perf_counter_ns
+COUNTS: collections.Counter = collections.Counter()
 
 
 def _profile():
@@ -87,6 +92,15 @@ def timed(label: str):
     """One-off section timer (TEST_DO(label) ... TEST_DONE parity)."""
     with Timer().section(label):
         yield
+
+
+def count(name: str) -> None:
+    """One more of the event `name` in ``COUNTS``."""
+    COUNTS[name] += 1
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
 
 
 # ---------------------------------------------------------------------------
