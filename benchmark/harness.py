@@ -125,7 +125,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     seeds = T.seeds(seed)
     pool = T.pool(cell.traffic, seeds["traffic"])
     t = time.perf_counter()
-    deployment = program.Deployment(cell.config, seeds, pool, device)
+    deployment = program.Deployment(cell.config, seed, pool, device)
     warm = Window(deployment, pool)
     t_warm = time.perf_counter()
     warm.episode(0)

@@ -4,10 +4,12 @@ from a configuration file through the port's own entry points.
 Set-up as ``cli.run_cstr_hempc`` builds it: the linearised CSTR model and
 the nonlinear plant, the CKKS context of the configuration's ring, the
 secret and public keys and the BSGS rotation keys generated on the card
-from the run's seeds, and ``hempc.make_hempc_regulator``.  An episode is one call of
+from the run's seeds, and the regulator of the configuration's form,
+which ``regulators/<form>.py`` builds.  An episode is one call of
 ``control.simulate.simulate`` (one plant) or ``simulate_batch`` (B plants).
 
-This is the only module of the benchmark that imports the port.
+This module and the form files ``regulators/*.py`` are the benchmark's
+only modules that import the port.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark import yardstick
+from benchmark import spec, yardstick
+from benchmark import traffic as T
 
 
 def plant_and_model(config: dict):
@@ -55,10 +58,16 @@ def check_security(ctx, config: dict) -> None:
 
 class Deployment:
     """The port's encrypted regulator and closed loop for one
-    configuration, on `device`, from the run's seeds."""
+    configuration, on `device`, from the run's seed.
 
-    def __init__(self, config: dict, seeds: dict, pool: np.ndarray, device):
-        from hectr_tpu_torch import hempc
+    What every regulator form shares is built here; the form's file
+    builds the regulator: ``build(config, ctx, keys, rot_keys, model,
+    plant, sampler, device)`` returns the port's regulator closure, whose
+    state is ``hempc.hempc_init_state``'s.  ``sampler(name)`` is a
+    ``TorchSampler`` on `device` for a random stream the form names
+    (``traffic.stream``)."""
+
+    def __init__(self, config: dict, seed: int, pool: np.ndarray, device):
         from hectr_tpu_torch.ckks import scheme as S
         from hectr_tpu_torch.ckks.context import make_context
         from hectr_tpu_torch.ckks.gemv import bsgs_rotations
@@ -67,7 +76,6 @@ class Deployment:
 
         self.config, self.device = config, device
         self.plants, self.steps = pool.shape[1], pool.shape[2]
-        self.horizon = config["regulator"]["horizon"]
         self.dt = float(config["plant"]["dt"])
         self.timings = {}
         clock = [time.perf_counter()]
@@ -79,11 +87,8 @@ class Deployment:
             self.timings[name] = now - clock[0]
             clock[0] = now
 
-        if config["regulator"] != {"form": "reference-shaped",
-                                   "horizon": self.horizon}:
-            raise ValueError(f"regulator {config['regulator']}: the harness "
-                             f"builds the unconstrained reference-shaped "
-                             f"make_hempc_regulator only")
+        form = spec.regulator(config["regulator"]["form"])
+        seeds = T.seeds(seed)
         self.model, self.plant = plant_and_model(config)
         ctx = make_context(CKKSPreset(name=config["name"], **config["ckks"]))
         check_security(ctx, config)
@@ -92,8 +97,9 @@ class Deployment:
         rot_keys = gen_rotation_keys(ctx, keys, S.TorchSampler(
             seeds["rotations"], device), bsgs_rotations(ctx.slots))
         lap("keys")
-        self.regulator = hempc.make_hempc_regulator(
-            ctx, keys, rot_keys, self.model, self.plant, self.horizon)
+        self.regulator = form.build(
+            config, ctx, keys, rot_keys, self.model, self.plant,
+            lambda name: S.TorchSampler(T.stream(seed, name), device), device)
         self.sampler = S.TorchSampler(seeds["encryption"], device)
         lap("regulator")
 
@@ -109,13 +115,12 @@ class Deployment:
             state = hempc.hempc_init_state(self.sampler, self.device)
             x, u, (_, canary) = simulate(
                 self.model, self.plant, p[0], self.dt, self.steps, self.device,
-                regulator=regulator, regulator_state=state,
-                horizon=self.horizon, return_state=True)
+                regulator=regulator, regulator_state=state, return_state=True)
             return x[None], u[None], canary.reshape(1)
         state = hempc.hempc_init_state(self.sampler, self.device, (self.plants,))
         x, u, (_, canary) = simulate_batch(
             self.model, self.plant, p, self.dt, self.steps, self.device,
-            regulator=regulator, regulator_state=state, horizon=self.horizon)
+            regulator=regulator, regulator_state=state)
         return x, u, canary
 
 

@@ -1,7 +1,7 @@
 """The reference closed loop: measure -> Kalman update -> target selector
 -> regulator -> nonlinear CSTR -> Kalman time update, on L loops at
 once (upstream ctr_simulate / hectr_simulate, src/ctr.c:363-618), with
-the unconstrained MPC law.
+the law of the configuration's regulator form (``laws/<form>.py``).
 
 Everything is derived here from the configuration file alone; the loop
 runs in the dtype it is asked for (float64, or float32 for the control).
@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from benchmark import spec
 from benchmark.reference import control as K
 from benchmark.reference.plant import CSTR
 
@@ -64,17 +65,6 @@ class System:
             if isinstance(getattr(self, f.name), np.ndarray)})
 
 
-class MPCLaw:
-    """u = uhat + du[:nu], du = -(K_A (xhat - xr) + K_B (uhat - ur))."""
-
-    def __init__(self, sys: System):
-        nu = sys.B.shape[1]
-        self.K_A, self.K_B = sys.K_A[:nu], sys.K_B[:nu]
-
-    def __call__(self, xhat, uhat, xr, ur):
-        return uhat - ((xhat - xr) @ self.K_A.T + (uhat - ur) @ self.K_B.T)
-
-
 def closed_loop(sys: System, law, p: np.ndarray):
     """L loops, loop i driven by p[i] ([L, N, np] deviations of F0):
     (x [L, N+1, nx], u [L, N, nu]) in absolute units, in sys's dtype."""
@@ -113,12 +103,14 @@ def reference_episodes(config: dict, pool: np.ndarray, used, dtype=np.float64):
 
     pool [P, B, N, np]: the disturbances of every episode the run may
     draw.  Returns (x [E, B, N+1, nx], u [E, B, N, nu]), the loops computed
-    in `dtype` (the set-up maths in float64)."""
+    in `dtype` (the set-up maths in float64) under the law of the
+    configuration's regulator form."""
     sys = System.from_config(config).astype(dtype)
+    law = spec.law(config["regulator"]["form"]).law(sys, config)
     Bp, N = pool.shape[1:3]
     used = np.asarray(used, dtype=np.int64)
     uniq, inverse = np.unique(used, return_inverse=True)
-    x, u = closed_loop(sys, MPCLaw(sys), pool[uniq].reshape(len(uniq) * Bp, N, -1))
+    x, u = closed_loop(sys, law, pool[uniq].reshape(len(uniq) * Bp, N, -1))
     x = x.reshape(len(uniq), Bp, N + 1, -1)[inverse]
     u = u.reshape(len(uniq), Bp, N, -1)[inverse]
     return x, u

@@ -6,7 +6,10 @@ its configuration (``configs/<config>.json``) and its traffic
 ``workloads`` list names the cell or, without that key, when the cell
 reports the end-to-end metric it ``moves``; it is read by
 ``metrics/<metric>.py``, whose ``read(run)`` returns a number or None.
-Adding a cell, a configuration or a metric is adding files and entries.
+A configuration's regulator form (``config["regulator"]["form"]``) is
+built by ``regulators/<form>.py`` and followed by the reference's law in
+``reference/laws/<form>.py``.  Adding a cell, a configuration, a metric
+or a regulator form is adding files and entries.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import pathlib
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
+REGULATORS = HERE / "regulators"
+LAWS = HERE / "reference" / "laws"
 
 
 @dataclasses.dataclass
@@ -60,11 +65,49 @@ def cell(name: str, root: pathlib.Path = ROOT) -> Cell:
                 end_to_end=e2e, per_layer=layer)
 
 
-def reader(metric: str):
-    """The ``read(run)`` function of metrics/<metric>.py."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark.metrics." + metric.replace(".", "_"), path)
+def load(path: pathlib.Path, name: str):
+    """The module in the file `path`, under the module name `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str):
+    """The ``read(run)`` function of metrics/<metric>.py."""
+    return load(HERE / "metrics" / f"{metric}.py",
+                "benchmark.metrics." + metric.replace(".", "_")).read
+
+
+def form(directory: pathlib.Path, name: str):
+    """The module <directory>/<name>.py of the regulator form `name`;
+    raises a ValueError naming the form and the directory where there is
+    none."""
+    path = directory / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"regulator form {name!r}: no {path.name} in "
+                         f"{directory}")
+    return load(path, f"benchmark.{directory.name}.{name.replace('-', '_')}")
+
+
+def regulator(name: str):
+    """regulators/<name>.py: ``build(...)``, the port's regulator."""
+    return form(REGULATORS, name)
+
+
+def law(name: str):
+    """reference/laws/<name>.py: ``law(system, config)`` and, optionally,
+    ``checks(config, x, u)``."""
+    return form(LAWS, name)
+
+
+def settings(regulator: dict, *keys: str) -> list:
+    """The values of `keys` in a configuration's ``regulator`` block,
+    whose form takes ``form`` and exactly these; raises a ValueError
+    naming the form on any other key or any missing one."""
+    taken = {"form", *keys}
+    if set(regulator) != taken:
+        raise ValueError(
+            f"regulator form {regulator.get('form')!r} takes the keys "
+            f"{sorted(taken)}; the configuration gives {sorted(regulator)}")
+    return [regulator[k] for k in keys]

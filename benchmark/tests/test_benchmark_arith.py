@@ -119,3 +119,18 @@ def test_traffic_repeats_from_the_seed():
     assert all(0 <= s < 2**32 for s in T.seeds(seed).values())
     with pytest.raises(ValueError):
         T.seeds(-1)
+
+
+def test_a_named_stream_repeats_from_the_seed_and_its_name():
+    seed = 2**31 + 977
+    streams = T.seeds(seed)
+    relin = T.stream(seed, "relin")
+    assert relin == T.stream(seed, "relin") and 0 <= relin < 2**32
+    others = {T.stream(seed + 1, "relin"), T.stream(seed, "relin2"),
+              *(T.stream(seed, name) for name in streams), *streams.values()}
+    assert relin not in others and len(others) == 2 + 2 * len(streams)
+    assert streams == {"keygen": 2052213626, "rotations": 2900422116,
+                       "encryption": 3372975877, "traffic": 3419413705}
+    for bad in ((-1, "relin"), (seed, "")):
+        with pytest.raises(ValueError):
+            T.stream(*bad)

@@ -15,6 +15,7 @@ from benchmark import spec
 FORBIDDEN = {"jax", "jaxlib", "flax", "hectr_tpu"}
 SOURCES = sorted(p for p in spec.HERE.rglob("*.py")
                  if "tests" not in p.relative_to(spec.HERE).parts)
+FORMS = spec.HERE / "tests" / "forms"   # forms the tests add as files
 
 
 def imported(path) -> set[str]:
@@ -33,7 +34,8 @@ def imported(path) -> set[str]:
     return names
 
 
-@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+@pytest.mark.parametrize("path", SOURCES + sorted(FORMS.rglob("*.py")),
+                         ids=lambda p: p.relative_to(spec.HERE).as_posix())
 def test_no_jax_and_no_port_bench(path):
     for name in imported(path):
         top = name.split(".")[0]
@@ -41,8 +43,9 @@ def test_no_jax_and_no_port_bench(path):
         assert not name.startswith("hectr_tpu_torch.bench"), (path, name)
 
 
-@pytest.mark.parametrize("path", sorted((spec.HERE / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((spec.HERE / "reference").rglob("*.py"))
+                         + sorted((FORMS / "laws").glob("*.py")),
+                         ids=lambda p: p.relative_to(spec.HERE).as_posix())
 def test_reference_imports_nothing_of_the_port(path):
     for name in imported(path):
         assert name.split(".")[0] in {"numpy", "benchmark", "dataclasses",
@@ -50,9 +53,11 @@ def test_reference_imports_nothing_of_the_port(path):
 
 
 def test_only_program_imports_the_port():
-    users = {p.name for p in SOURCES
+    """Only program.py and the regulator forms' files, regulators/*.py."""
+    users = {p.relative_to(spec.HERE).as_posix() for p in SOURCES
              if any(n.split(".")[0] == "hectr_tpu_torch" for n in imported(p))}
-    assert users == {"program.py"}
+    forms = {f"regulators/{p.name}" for p in spec.REGULATORS.glob("*.py")}
+    assert "program.py" in users and users <= {"program.py"} | forms, users
 
 
 def test_run_refuses_a_machine_without_a_card():

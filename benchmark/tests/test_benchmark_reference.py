@@ -11,7 +11,7 @@ import torch
 from benchmark import program, spec, yardstick
 from benchmark import traffic as T
 from benchmark.reference import control as K
-from benchmark.reference.loop import MPCLaw, System, reference_episodes
+from benchmark.reference.loop import System, reference_episodes
 
 CELL = spec.benchmark()["workloads"][0]["name"]
 
@@ -73,7 +73,8 @@ def test_closed_loop_and_law_against_the_ports_plaintext_loop():
     rng = np.random.default_rng(0)
     xhat, uhat, xr, ur = (rng.normal(0, 0.1, (5, n)) for n in (3, 2, 3, 2))
     want, _ = law(None, *(torch.from_numpy(v) for v in (xhat, uhat, xr, ur)))
-    np.testing.assert_allclose(MPCLaw(sys)(xhat, uhat, xr, ur), want.numpy(),
+    mpc = spec.law(cfg["regulator"]["form"]).law(sys, cfg)
+    np.testing.assert_allclose(mpc(xhat, uhat, xr, ur), want.numpy(),
                                rtol=0, atol=1e-15)
 
 

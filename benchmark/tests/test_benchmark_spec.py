@@ -74,7 +74,22 @@ def test_config_files(entry):
     assert len(entry["reduced"]) <= 16
     assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
     assert config["guarantees"]["security_bits"] == 128
-    assert set(config["correct_limits"]) == {"u_rel_gap", "x_rel_gap"}
+    assert {"u_rel_gap", "x_rel_gap"} <= set(config["correct_limits"])
+    form = config["regulator"]["form"]
+    assert callable(spec.regulator(form).build)
+    law = spec.law(form)
+    assert callable(law.law)
+    if set(config["correct_limits"]) - {"u_rel_gap", "x_rel_gap"}:
+        assert callable(law.checks)
+
+
+@pytest.mark.parametrize("regulators,laws", [
+    (spec.REGULATORS, spec.LAWS),
+    (spec.HERE / "tests" / "forms" / "regulators",
+     spec.HERE / "tests" / "forms" / "laws")], ids=["forms", "test-forms"])
+def test_every_form_has_its_law_and_every_law_its_form(regulators, laws):
+    forms = {p.stem for p in regulators.glob("*.py")}
+    assert forms and forms == {p.stem for p in laws.glob("*.py")}
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -29,6 +29,17 @@ def seeds(seed: int) -> dict[str, int]:
     return {name: int(w) for name, w in zip(STREAMS, words)}
 
 
+def stream(seed: int, name: str) -> int:
+    """The 32-bit seed of the random stream `name` that a regulator form
+    draws from (a relinearisation key, say): from the run's seed and the
+    name, independent of ``seeds``' streams and of every other name."""
+    if seed < 0 or not name:
+        raise ValueError(f"a stream needs a seed >= 0 and a name, got "
+                         f"{seed}, {name!r}")
+    sequence = np.random.SeedSequence(seed, spawn_key=tuple(name.encode()))
+    return int(sequence.generate_state(1, dtype=np.uint32)[0])
+
+
 def episodes(traffic: dict, seed: int, count: int) -> np.ndarray:
     """`count` episodes of disturbances [count, plants, episode_steps, 1]
     (deviations of F0 from its steady state), drawn from `seed`."""
