@@ -29,10 +29,14 @@ cost.  The last recording and the first profiled window are reduced:
     over the loop's runs (``pmu.COUNTS``), and the device ms and launches
     a step under ``regulator.replay``.  A replayed step opens no
     ``scheme.*``, ``gemv.*`` or ``keyswitch.*`` span: its kernels all
-    fall under ``regulator.replay``.
+    fall under ``regulator.replay``;
+  * the same for the loop's stage graph (``control.simulate``
+    ``StageGraph``): ``loop.*`` counts and ``loop.stages.replay``, under
+    which the plant's, estimator's and selector's kernels all fall.
 
 Each loop keeps one encryption sampler over its runs, so its regulator
-captures once (in the first, warm run) and replays after.
+captures once (in the first, warm run) and replays after; its stages
+capture once for each batch.
 
 The tables go to standard error; the last line of standard output is one
 JSON object.  Also printed: what a span costs on this host with nothing
@@ -173,6 +177,9 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
            "regulator_counts": {k: v for k, v in pmu.COUNTS.items()
                                 if k.startswith("regulator.")},
            "regulator_replay": spans["by_span"].get("regulator.replay"),
+           "loop_counts": {k: v for k, v in pmu.COUNTS.items()
+                           if k.startswith("loop.")},
+           "loop_replay": spans["by_span"].get("loop.stages.replay"),
            "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
                                 for name, row in rec.table.items()}}
     _print(label, out, rec, steps)
@@ -202,6 +209,8 @@ def _print(label: str, out: dict, rec, steps: int) -> None:
         print(f"{name:28s} {ms:9.4f} ms", file=err)
     print(f"-- regulator: {out['regulator_counts']}; under regulator.replay "
           f"{out['regulator_replay']}", file=err)
+    print(f"-- loop stages: {out['loop_counts']}; under loop.stages.replay "
+          f"{out['loop_replay']}", file=err)
     r = out["keyswitch_roofline"]
     print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
           f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",

@@ -12,6 +12,14 @@ loops, each with its own disturbance, through the same step with every
 state batched [B, n] and one regulator call per step for all of them
 (the JAX package vmaps a whole loop step instead,
 ``__graft_entry__.py`` ``one_loop_step``).
+
+On a CUDA device the loop's own stages of a step (the plant, the time
+update, the next step's measurement update and selector) replay as one
+CUDA graph (``StageGraph``), so a step costs the host the regulator's
+call, one graph launch and a few copies; the graph and the stages'
+constants stay on the device across episodes while the model, plant,
+dt, device and batch stay the same.  Elsewhere the stages run
+uncaptured.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from hectr_tpu_torch.control.stages import (
     selector_matrix,
     weighting_matrices,
 )
-from hectr_tpu_torch.utils.pmu import span
+from hectr_tpu_torch.utils.pmu import count, span
 from hectr_tpu_torch.utils.rows import matvec
 
 
@@ -163,10 +171,147 @@ def simulate_batch(
                         regulator, regulator_state, horizon, None)
 
 
+def _f64(m, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(m, dtype=np.float64), device=device)
+
+
+class Stages:
+    """The loop's own stages on one device (everything of a step but the
+    regulator), with the constants they read: the model's matrices, the
+    estimator's and the target selector's gains and the plant's steady
+    state, uploaded once."""
+
+    def __init__(self, model: LinearModel, plant: Plant, dt: float, device):
+        Lx, Ld = estimator_gains(model.A, model.B, model.C, model.Bd,
+                                 model.Cd, plant.xs)
+        Ginv = selector_matrix(model.A, model.B, model.C, model.Hr)
+        self.A, self.B, self.C, self.Bd, self.Cd, self.Hr = (
+            _f64(m, device) for m in (model.A, model.B, model.C, model.Bd,
+                                      model.Cd, model.Hr))
+        self.Lx, self.Ld, self.Ginv = (_f64(m, device) for m in (Lx, Ld, Ginv))
+        self.xs, self.us, self.ps = (_f64(v, device)
+                                     for v in (plant.xs, plant.us, plant.ps))
+        self.plant, self.dt = plant, dt
+
+    def observe(self, x, xhatm, dhatm, rsp, k):
+        """Step k's measurement update and target selector: (xhat, dhat,
+        xr, ur)."""
+        with span("loop.measure_update", k):
+            y = measure(self.C, x)
+            xhat, dhat = measure_forward(self.C, self.Cd, self.Lx, self.Ld, y,
+                                         xhatm, dhatm)
+        with span("loop.selector", k):
+            xr, ur = select_target(self.Bd, self.Cd, self.Hr, self.Ginv, dhat,
+                                   rsp)
+        return xhat, dhat, xr, ur
+
+    def step(self, x, u, p, xhat, dhat, rsp, k, then_observe):
+        """Step k's plant and time update under the move u and the
+        disturbance row p, then (with `then_observe`) step k + 1's
+        measurement update and selector: (x, xhat, dhat, xr, ur) of step
+        k + 1, the last four None without `then_observe`."""
+        with span("loop.plant", k):
+            x = actuate(self.plant.ode, self.plant.jacobian, x, u, p, self.xs,
+                        self.us, self.ps, self.dt)
+        with span("loop.time_update", k):
+            xhatm, dhatm = estimate_forward(self.A, self.B, self.Bd, xhat,
+                                            dhat, u)
+        if not then_observe:
+            return x, None, None, None, None
+        return (x, *self.observe(x, xhatm, dhatm, rsp, k + 1))
+
+
+def _values(model: LinearModel, plant: Plant, dt: float, device) -> tuple:
+    """What the stages' constants are computed from, by value (the
+    arrays' bytes; the plant's functions by identity, held)."""
+    arrays = (model.A, model.B, model.C, model.Bd, model.Cd, model.Hr,
+              plant.xs, plant.us, plant.ps)
+    return (device, float(dt), plant.ode, plant.jacobian,
+            *((np.shape(a), np.asarray(a, dtype=np.float64).tobytes())
+              for a in arrays))
+
+
+class StageGraph:
+    """``Stages.step`` -- a step's plant and time update and the next
+    step's measurement update and selector -- as one CUDA graph, held
+    across episodes with the stages' constants.
+
+    ``stages`` gives the constants for a model, plant, dt and device,
+    kept while those values stay the same; other values free the graph
+    and build new constants.  A call of ``step`` whose six inputs have a
+    new key (their shapes and dtypes: the batch) frees the graph, runs
+    the step uncaptured (a real step, returned), then captures it into a
+    new graph; a call with the key copies the inputs into the graph's,
+    replays it and returns copies of its outputs, never the outputs
+    themselves.  ``pmu.COUNTS`` counts ``loop.uncaptured``,
+    ``loop.capture`` and ``loop.replay``."""
+
+    def __init__(self):
+        self.values = self.constants = None
+        self.key = self.graph = None
+        self.inputs = self.outputs = ()
+
+    def stages(self, model: LinearModel, plant: Plant, dt: float,
+               device) -> Stages:
+        values = _values(model, plant, dt, device)
+        if values != self.values:
+            self.free()
+            self.constants = Stages(model, plant, dt, device)
+            self.values = values
+        return self.constants
+
+    def free(self) -> None:
+        self.key = self.graph = None
+        self.inputs = self.outputs = ()
+
+    def step(self, x, u, p, xhat, dhat, rsp, k, then_observe):
+        tensors = (x, u, p, xhat, dhat, rsp)
+        key = tuple((t.shape, t.dtype) for t in tensors)
+        if key != self.key:
+            return self._capture(key, tensors, k, then_observe)
+        count("loop.replay")
+        with span("loop.stages.replay", k):
+            for held, t in zip(self.inputs, tensors):
+                held.copy_(t)
+            self.graph.replay()
+            return tuple(t.clone() for t in self.outputs)
+
+    def _capture(self, key, tensors, k, then_observe):
+        self.free()
+        count("loop.uncaptured")
+        out = self.constants.step(*tensors, k, then_observe)
+        with span("loop.stages.capture", k):
+            inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                           for t in tensors)
+            graph = torch.cuda.CUDAGraph()
+            # unsafe calls are refused on this thread only: the stages run
+            # under any regulator, and a process group's watchdog thread
+            # may query its events meanwhile
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.constants.step(*inputs, k, True)
+        self.key, self.graph = key, graph
+        self.inputs, self.outputs = inputs, outputs
+        count("loop.capture")
+        return out
+
+
+# the loop's stage graph on a CUDA device: one key at a time
+_GRAPH = StageGraph()
+
+
+def _captures(device) -> bool:
+    """Whether the loop's stages replay as a CUDA graph on `device`: on a
+    CUDA device; elsewhere they run uncaptured."""
+    return device.type == "cuda"
+
+
 def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
                  regulator_state, horizon, rsp):
     """The step loop of `simulate` over states [*lead, n], with p_seq
-    [*lead, N, np]."""
+    [*lead, N, np].  On a CUDA device the stages of every step replay as
+    one CUDA graph (``StageGraph``), whose constants stay on the device
+    between episodes; elsewhere they run uncaptured, their constants
+    built for the call."""
     device = resolve_device(device)
     horizon = N // 10 if horizon is None else horizon
     if regulator is None:
@@ -176,48 +321,34 @@ def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
     nu = np.shape(model.B)[1]
     lead = p_seq.shape[:-2]
     with span("loop.episode_start"):
-        Lx, Ld = estimator_gains(model.A, model.B, model.C, model.Bd,
-                                 model.Cd, plant.xs)
-        Ginv = selector_matrix(model.A, model.B, model.C, model.Hr)
-
-        def f64(m):
-            return torch.as_tensor(np.asarray(m, dtype=np.float64),
-                                   device=device)
-
-        A, B, C, Bd, Cd, Hr = (f64(m) for m in (model.A, model.B, model.C,
-                                                model.Bd, model.Cd, model.Hr))
-        Lx, Ld, Ginv = f64(Lx), f64(Ld), f64(Ginv)
-        xs, us, ps = f64(plant.xs), f64(plant.us), f64(plant.ps)
+        if _captures(device):
+            stages = _GRAPH.stages(model, plant, dt, device)
+            step = _GRAPH.step
+        else:
+            stages = Stages(model, plant, dt, device)
+            step = stages.step
         rsp_v = torch.zeros((*lead, nu), dtype=torch.float64, device=device) \
-            if rsp is None else f64(rsp)
-        p_seq = f64(p_seq)
+            if rsp is None else _f64(rsp, device)
+        p_seq = _f64(p_seq, device)
 
         x = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
         xhatm = torch.zeros((*lead, nx), dtype=torch.float64, device=device)
         dhatm = torch.zeros((*lead, model.Bd.shape[1]), dtype=torch.float64,
                             device=device)
-        u = torch.zeros((*lead, nu), dtype=torch.float64, device=device)
     reg_state = regulator_state
     x_traj, u_traj = [], []
+    xhat, dhat, xr, ur = stages.observe(x, xhatm, dhatm, rsp_v, 0)
     for k in range(N):
-        with span("loop.measure_update", k):
-            y = measure(C, x)
-            xhat, dhat = measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm)
-        with span("loop.selector", k):
-            xr, ur = select_target(Bd, Cd, Hr, Ginv, dhat, rsp_v)
         uhat = ur if k == 0 else u
         with span("loop.regulator", k):
             u, reg_state = regulator(reg_state, xhat, uhat, xr, ur)
         x_traj.append(x)
         u_traj.append(u)
-        with span("loop.plant", k):
-            x = actuate(plant.ode, plant.jacobian, x, u, p_seq[..., k, :], xs,
-                        us, ps, dt)
-        with span("loop.time_update", k):
-            xhatm, dhatm = estimate_forward(A, B, Bd, xhat, dhat, u)
+        x, xhat, dhat, xr, ur = step(x, u, p_seq[..., k, :], xhat, dhat,
+                                     rsp_v, k, k + 1 < N)
     x_traj.append(x)
 
     with span("loop.trajectories"):
-        x_all = (torch.stack(x_traj, dim=-2) + xs).cpu().numpy()
-        u_all = (torch.stack(u_traj, dim=-2) + us).cpu().numpy()
+        x_all = (torch.stack(x_traj, dim=-2) + stages.xs).cpu().numpy()
+        u_all = (torch.stack(u_traj, dim=-2) + stages.us).cpu().numpy()
     return x_all, u_all, reg_state

@@ -14,8 +14,11 @@ Capabilities of reference src/ctr.c:
 
 The per-step updates take one state vector [n] or a batch of them
 [..., n] (independent loops): matrices apply to the last axis through
-``utils.rows.matvec``, so each row of a batch equals its unbatched
-update bit for bit on the CPU.
+``utils.rows.matvec`` on the CPU, so each row of a batch equals its
+unbatched update bit for bit there, and through elementwise products
+and a sum on the card (``apply``), so the stages call no cuBLAS routine
+there: the closed loop captures them into a CUDA graph, and a cuBLAS
+call in a capture takes a workspace of the capture stream's own.
 
 Deviation (documented): reference `ctr_measure` indexes x[i] instead of
 x[j] (src/ctr.c:163), i.e. y_i = (sum_j C_ij) * x_i -- benign in all its
@@ -105,10 +108,19 @@ def selector_matrix(A, B, C, Hr):
 # ---------------------------------------------------------------------------
 
 
+def apply(M, x):
+    """M [r, c] applied to the last axis of x [..., c] -> [..., r]: on the
+    CPU ``utils.rows.matvec``; elsewhere the elementwise products summed
+    over c, which calls no cuBLAS routine."""
+    if x.device.type == "cpu":
+        return matvec(M, x)
+    return (M * x.unsqueeze(-2)).sum(-1)
+
+
 def measure(C, x):
     """y = C x (reference ctr_measure, src/ctr.c:156-164; index bug
     fixed -- see module docstring)."""
-    return matvec(C, x)
+    return apply(C, x)
 
 
 def measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm):
@@ -119,10 +131,10 @@ def measure_forward(C, Cd, Lx, Ld, y, xhatm, dhatm):
     Cd/Ld/dhatm=None for the disturbance-free branch.
     """
     if Cd is None:
-        e = y - matvec(C, xhatm)
-        return xhatm + matvec(Lx, e), None
-    e = y - matvec(C, xhatm) - matvec(Cd, dhatm)
-    return xhatm + matvec(Lx, e), dhatm + matvec(Ld, e)
+        e = y - apply(C, xhatm)
+        return xhatm + apply(Lx, e), None
+    e = y - apply(C, xhatm) - apply(Cd, dhatm)
+    return xhatm + apply(Lx, e), dhatm + apply(Ld, e)
 
 
 def select_target(Bd, Cd, Hr, Ginv, dhat, rsp):
@@ -135,16 +147,16 @@ def select_target(Bd, Cd, Hr, Ginv, dhat, rsp):
         pack = torch.cat([torch.zeros((*rsp.shape[:-1], nx), dtype=rsp.dtype,
                                       device=rsp.device), rsp], dim=-1)
     else:
-        pack = torch.cat([matvec(Bd, dhat), rsp - matvec(Hr, matvec(Cd, dhat))],
+        pack = torch.cat([apply(Bd, dhat), rsp - apply(Hr, apply(Cd, dhat))],
                          dim=-1)
-    r = matvec(Ginv, pack)
+    r = apply(Ginv, pack)
     return r[..., :nx], r[..., nx:]
 
 
 def lqr_control(G, xhat, xr, ur):
     """u = -G (xhat - xr) + ur (reference ctr_control, src/ctr.c:282-292;
     present but commented out of the reference loop at src/ctr.c:423)."""
-    return matvec(-G, xhat - xr) + ur
+    return apply(-G, xhat - xr) + ur
 
 
 def estimate_forward(A, B, Bd, xhat, dhat, u):
@@ -152,10 +164,10 @@ def estimate_forward(A, B, Bd, xhat, dhat, u):
 
     Parity: reference ctr_estimate (src/ctr.c:294-332).
     """
-    xhatm = matvec(A, xhat) + matvec(B, u)
+    xhatm = apply(A, xhat) + apply(B, u)
     if Bd is None:
         return xhatm, None
-    return xhatm + matvec(Bd, dhat), dhat
+    return xhatm + apply(Bd, dhat), dhat
 
 
 def actuate(ode, jacobian, x, u, p, xs, us, ps, dt):

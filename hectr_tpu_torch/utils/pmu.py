@@ -17,8 +17,9 @@ and idle gaps by span.  Inside ``recording()`` it keeps its start and
 end on the host clock, without the profiler.
 
 ``count(name)`` adds one to ``COUNTS[name]``: how often a path was taken
-(the regulator's CUDA-graph captures, replays and uncaptured calls), as
-the kernels' wrappers count their launches.
+(the CUDA-graph captures, replays and uncaptured calls of the regulator,
+``regulator.*``, and of the closed loop's stages, ``loop.*``), as the
+kernels' wrappers count their launches.
 """
 
 from __future__ import annotations
