@@ -34,10 +34,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      versions (K11's m' entry and K12's y bit-equal, the fused embedding
      bit-equal to its fixed-order sum and within one unit of y of the
      plain composition, the unembedded values to 1e-12 relative), timed
-     beside bound and plain (hectr_tpu_torch.bench.codec_kernels)
+     beside bound and plain (hectr_tpu_torch.bench.codec_kernels); the
+     CSTR loop's stages K13 at one plant and 1,024 within 1e-13 of the
+     uncaptured stages in each of its modes (step, step with the next
+     observation, observation), timed in the second beside its bound, the
+     uncaptured stages and
+     their CUDA graph, with the host's us a step through each
+     (hectr_tpu_torch.bench.stages_kernels)
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
+     "stage-graph" (after 3, on its keys): the stage graph, which runs
+     the stages of every plant but the CSTR on the card, on the CSTR
+     with its right-hand side wrapped (a plant K13 does not take): the
+     encrypted loop at one plant and 4 (loop b's disturbance scaled by
+     1 + b/4), 40 steps, bit-equal (x, u, canary) to the same loops with
+     the stages uncaptured, one plant <= 5e-10 per channel from phase 3's
+     plaintext twin; its loop.* counts, reset before, are 2 uncaptured
+     steps, 2 captures and 78 replays, with no K13 launch
   4. the FLAGSHIP loop (logN=15, 24-prime chain, BSGS rotation keys,
      horizon 4): <= 2e-9 per channel, canary < 1e-5, final state
   5. the multiply-ceiling probe K3 (hectr_tpu_torch.bench.vpu_ceiling):
@@ -126,7 +140,8 @@ Phases (each prints its own lines; any failure exits non-zero):
  10. each kernel launched on every path that uses it (K1/K2, K6-K12 in
      phases 3, 4, 6-9, "parallel", "batch" and "limb", with K1/K2's
      launches by shape and K9's by primitive, and each phase's launches of
-     every one of them; K3 in phase 5; K4/K5 in "parallel"); each
+     every one of them; K3 in phase 5; K4/K5 in "parallel"; K13 summed
+     over the CSTR loops' phases); each
      phase's wall time, the kernel summary, the card, and as the last
      line {"ok": true, "device": {...}}
 """
@@ -269,6 +284,7 @@ def phase_kernels(device, kernel_rows):
     keyswitch_kernels(device, kernel_rows)
     rns_kernels(device, kernel_rows)
     codec_kernels(device, kernel_rows)
+    stages_kernels(kernel_rows)
 
 
 def keyswitch_kernels(device, kernel_rows):
@@ -360,9 +376,37 @@ def codec_kernels(device, kernel_rows):
                 bound_by=rec["bound_by"], library_ms=None)
 
 
+def stages_kernels(kernel_rows):
+    """K13 held to the uncaptured stages at ``bench.stages_kernels``' cases,
+    timed there beside its bound, the uncaptured stages and their CUDA
+    graph, with the host's us a step through each."""
+    from hectr_tpu_torch.bench import stages_kernels as SK
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    for rec in SK.measure(device):
+        gaps = {mode: f"{g:.3e}" for mode, g in rec["gaps"].items()}
+        print(f"[kernels] K13 loop_stages ({rec['case']}): within "
+              f"{rec['max_gap']:.3e} of xs / us of the uncaptured stages "
+              f"(by mode {json.dumps(gaps)}); step_observe timed: "
+              f"kernel {rec['ms']:.5f} ms in {rec['launches']} launch, bound "
+              f"{rec['bound_ms']:.7f} ms ({rec['bound_by']}) = "
+              f"{rec['share_of_bound']:.5f} of it; uncaptured stages "
+              f"{rec['plain_ms']:.4f} ms, their graph "
+              f"{rec['plain_graph_ms']:.4f} ms in {rec['plain_launches']} "
+              f"launches; host "
+              f"{rec['host_us']:.2f} us a step, the graph's "
+              f"{rec['graph_host_us']:.2f} us", flush=True)
+        if rec["case"] == "one plant":
+            kernel_rows["loop_stages"].update(
+                max_abs_err=rec["max_gap"], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=None)
+
+
 def reset_launches() -> None:
     from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
-                                     ntt_cuda, ntt_exchange_cuda, rns_cuda)
+                                     ntt_cuda, ntt_exchange_cuda, rns_cuda,
+                                     stages_cuda)
 
     ntt_cuda.reset_launches()
     mulmod_cuda.reset_launches()
@@ -370,15 +414,18 @@ def reset_launches() -> None:
     keyswitch_cuda.reset_launches()
     rns_cuda.reset_launches()
     codec_cuda.reset_launches()
+    stages_cuda.reset_launches()
 
 
 def read_launches() -> dict:
     from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
-                                     ntt_cuda, ntt_exchange_cuda, rns_cuda)
+                                     ntt_cuda, ntt_exchange_cuda, rns_cuda,
+                                     stages_cuda)
 
     return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES,
             **ntt_exchange_cuda.LAUNCHES, **keyswitch_cuda.LAUNCHES,
-            **rns_cuda.LAUNCHES, **codec_cuda.LAUNCHES}
+            **rns_cuda.LAUNCHES, **codec_cuda.LAUNCHES,
+            **stages_cuda.LAUNCHES}
 
 
 # the launches a loop phase sums: K1/K2, the key-switch kernels K6-K8, the
@@ -445,6 +492,90 @@ def run_loop(label, preset, rotations, device, card):
           f"F) = {dev.tolist()}; canary {canary:.3e}; final state "
           f"{x[-1].tolist()}; launches {launches}", flush=True)
     return x, u, dev, canary, launches, (ctx, keys, rot_keys, x_pt, u_pt)
+
+
+def wrapped_ode(x, u, p):
+    """The CSTR's right-hand side behind another function: a plant K13
+    does not take, whose stages the card runs as the stage graph."""
+    from hectr_tpu_torch.control.plants import cstr_ode
+
+    return cstr_ode(x, u, p)
+
+
+def phase_stage_graph(device, reference, card):
+    """The stage graph (``control.simulate.StageGraph``) on a plant K13
+    does not take: the REFERENCE_HEMPC encrypted loop on phase 3's keys,
+    one plant and 4, bit-equal to the same loops with the stages
+    uncaptured; its loop.* counts."""
+    from hectr_tpu_torch import cli
+    from hectr_tpu_torch.ckks.scheme import TorchSampler
+    from hectr_tpu_torch.control import simulate as sim
+    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.ops import stages_cuda
+    from hectr_tpu_torch.utils import pmu
+
+    ctx, keys, rot_keys, x_pt, u_pt = reference
+    model, cstr_plant = cli.cstr_setup()
+    plant = sim.Plant(ode=wrapped_ode, jacobian=cstr_plant.jacobian,
+                      xs=cstr_plant.xs, us=cstr_plant.us, ps=cstr_plant.ps)
+    check(sim._runner(plant, device) is sim._GRAPH,
+          "stage-graph: the wrapped plant does not take the stage graph")
+    reg = make_hempc_regulator(ctx, keys, rot_keys, model, plant, 4)
+    p = cli.disturbance(40)
+
+    def loops():
+        """x, u and canaries of one plant, then of 4, on fresh draws."""
+        out = []
+        for batch in ((), (4,)):
+            state = hempc_init_state(TorchSampler(7, device), device, batch)
+            if batch:
+                p_b = np.stack([p * (1 + b / 4) for b in range(batch[0])])
+                x, u, (_, canary) = sim.simulate_batch(
+                    model, plant, p_b, 1.0, 40, device, regulator=reg,
+                    regulator_state=state)
+            else:
+                x, u, (_, canary) = sim.simulate(
+                    model, plant, p, 1.0, 40, device, regulator=reg,
+                    regulator_state=state, return_state=True)
+            out.append((x, u, canary.cpu()))
+        torch.cuda.synchronize()
+        return out
+
+    pmu.reset_counts()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = loops()
+    t_graph = time.perf_counter() - t0
+    counts = {k: v for k, v in pmu.COUNTS.items() if k.startswith("loop.")}
+    k13 = stages_cuda.LAUNCHES["loop_stages"]
+    runner = sim._runner
+    sim._runner = lambda plant, device: None   # the stages uncaptured
+    try:
+        t0 = time.perf_counter()
+        want = loops()
+        t_plain = time.perf_counter() - t0
+    finally:
+        sim._runner = runner
+    for (x, u, c), (x1, u1, c1), n in zip(got, want, (1, 4)):
+        check(np.array_equal(x, x1) and np.array_equal(u, u1)
+              and torch.equal(c, c1),
+              f"stage-graph: {n} plant(s) through the graph differ from the "
+              f"uncaptured stages")
+        check(bool((c < 1e-5).all()), f"stage-graph: canary {c}")
+    dev = deviations(got[0][0], got[0][1], x_pt, u_pt)
+    check(bool((dev <= 5e-10).all()), f"stage-graph deviation {dev}")
+    want_counts = {"loop.uncaptured": 2, "loop.capture": 2,
+                   "loop.replay": 78}
+    check(counts == want_counts and k13 == 0,
+          f"stage-graph: counts {counts}, K13 launches {k13}; want "
+          f"{want_counts} and none")
+    pmu.reset_counts()
+    print(f"[stage-graph] the wrapped CSTR (stages by StageGraph) at 1 and 4 "
+          f"plants x 40 steps bit-equal to the uncaptured stages (x, u, "
+          f"canary); one plant's max |encrypted - plaintext| per channel "
+          f"{dev.tolist()}; counts {json.dumps(counts)}, K13 launches {k13};"
+          f" {t_graph:.3f} s through the graph, {t_plain:.3f} s uncaptured "
+          f"on {card}", flush=True)
 
 
 def phase_ceiling(device, kernel_rows, card):
@@ -1736,7 +1867,7 @@ def main() -> None:
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
     from hectr_tpu_torch.ops import (build, codec_cuda, keyswitch_cuda,
                                      mulmod_cuda, ntt_cuda, ntt_exchange_cuda,
-                                     rns_cuda)
+                                     rns_cuda, stages_cuda)
     from hectr_tpu_torch.utils import read_traj_bin
 
     from hectr_tpu_torch.utils.pmu import Timer
@@ -1744,7 +1875,7 @@ def main() -> None:
     timer = Timer()          # each phase's wall time, device synchronized
     with timer.section("build"):
         sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu",
-                   "keyswitch.cu", "rns_ops.cu", "codec.cu")
+                   "keyswitch.cu", "rns_ops.cu", "codec.cu", "loop_stages.cu")
         libs = build.build(*sources)
         ntt_cuda.library()
         mulmod_cuda.library()
@@ -1752,6 +1883,7 @@ def main() -> None:
         keyswitch_cuda.library()
         rns_cuda.library()
         codec_cuda.library()
+        stages_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
           f"{timer.sections['build']:.2f} s", flush=True)
@@ -1798,12 +1930,16 @@ def main() -> None:
         "crt_decode": {"name": "crt_decode", "route": "cuda",
                        "source": "hectr_tpu_torch/csrc/codec.cu",
                        "replaces": "hectr_tpu/ckks/scheme.py:187"},
+        # nor here: XLA fuses the closed loop's plant and estimator
+        "loop_stages": {"name": "loop_stages", "route": "cuda",
+                        "source": "hectr_tpu_torch/csrc/loop_stages.cu",
+                        "replaces": "hectr_tpu/control/simulate.py:171"},
     }
     with timer.section("kernels"):
         phase_kernels(device, kernel_rows)
 
     with timer.section("reference-hempc"):
-        x, u, dev, canary, launches_ref, _ = run_loop(
+        x, u, dev, canary, launches_ref, reference = run_loop(
             "reference-hempc", REFERENCE_HEMPC, None, device, card)
     check(bool((dev <= 5e-10).all()), f"reference deviation {dev}")
     check(canary < 1e-5, f"reference canary {canary}")
@@ -1814,6 +1950,9 @@ def main() -> None:
     print(f"[reference-hempc] golden cstr-hempc.bin max relative error per "
           f"channel {rel.tolist()}", flush=True)
     check(bool((rel < 1e-6).all()), f"golden mismatch {rel}")
+    with timer.section("stage-graph"):
+        phase_stage_graph(device, reference, card)
+    del reference
 
     with timer.section("flagship"):
         x, u, dev, canary, launches_flag, flagship = run_loop(
@@ -1857,7 +1996,7 @@ def main() -> None:
                   f"{kname} kernel never launched in the {label} phase")
     for kname in LOOP_KERNELS:
         kernel_rows[kname]["launches"] = sum(l[kname] for _, l in loops)
-    for kname in ntt_exchange_cuda.LAUNCHES:
+    for kname in (*ntt_exchange_cuda.LAUNCHES, *stages_cuda.LAUNCHES):
         kernel_rows[kname]["launches"] = sum(l.get(kname, 0)
                                              for _, l in loops)
         check(kernel_rows[kname]["launches"] > 0,

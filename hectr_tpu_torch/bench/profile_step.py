@@ -30,13 +30,16 @@ cost.  The last recording and the first profiled window are reduced:
     a step under ``regulator.replay``.  A replayed step opens no
     ``scheme.*``, ``gemv.*`` or ``keyswitch.*`` span: its kernels all
     fall under ``regulator.replay``;
-  * the same for the loop's stage graph (``control.simulate``
-    ``StageGraph``): ``loop.*`` counts and ``loop.stages.replay``, under
-    which the plant's, estimator's and selector's kernels all fall.
+  * the same for the loop's stages (``control.simulate``): ``loop.*``
+    counts, among them ``loop.kernel``, a step's K13 launch for the CSTR
+    plant (``StageKernel``), and the device ms and launches a step under
+    ``loop.stages.kernel`` (K13) and ``loop.stages.replay`` (the stage
+    graph of any other plant, ``StageGraph``), under which the plant's,
+    estimator's and selector's kernels all fall.
 
 Each loop keeps one encryption sampler over its runs, so its regulator
-captures once (in the first, warm run) and replays after; its stages
-capture once for each batch.
+captures once (in the first, warm run) and replays after; the CSTR
+loops' stages are one K13 launch a step.
 
 The tables go to standard error; the last line of standard output is one
 JSON object.  Also printed: what a span costs on this host with nothing
@@ -179,6 +182,7 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
            "regulator_replay": spans["by_span"].get("regulator.replay"),
            "loop_counts": {k: v for k, v in pmu.COUNTS.items()
                            if k.startswith("loop.")},
+           "loop_kernel": spans["by_span"].get("loop.stages.kernel"),
            "loop_replay": spans["by_span"].get("loop.stages.replay"),
            "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
                                 for name, row in rec.table.items()}}
@@ -209,8 +213,10 @@ def _print(label: str, out: dict, rec, steps: int) -> None:
         print(f"{name:28s} {ms:9.4f} ms", file=err)
     print(f"-- regulator: {out['regulator_counts']}; under regulator.replay "
           f"{out['regulator_replay']}", file=err)
-    print(f"-- loop stages: {out['loop_counts']}; under loop.stages.replay "
-          f"{out['loop_replay']}", file=err)
+    print(f"-- loop stages: {out['loop_counts']} (loop.kernel "
+          f"{out['loop_counts'].get('loop.kernel', 0)}); under "
+          f"loop.stages.kernel {out['loop_kernel']}; under "
+          f"loop.stages.replay {out['loop_replay']}", file=err)
     r = out["keyswitch_roofline"]
     print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
           f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",

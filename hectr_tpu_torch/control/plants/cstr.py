@@ -78,6 +78,18 @@ def cstr_jacobian(x, u, p):
     ], dim=-2)
 
 
+def cstr_scalars() -> dict[str, float]:
+    """The scalars ``cstr_ode`` and ``cstr_jacobian`` compute with, as they
+    compute them on the card (1/S as PyTorch divides a tensor by a scalar
+    there, -E/R as it divides a scalar by a tensor), for a kernel that
+    computes the plant itself (K13, ops/stages_cuda.py)."""
+    S = math.pi * RADIUS**2
+    return {"S": S, "inv_S": 1.0 / S,
+            "heat": (-DELTA_H) / (RHO * CP),
+            "cool": 2 * U_HT / (RADIUS * RHO * CP),
+            "K0": K0, "E": E_OVER_R, "neg_E": -E_OVER_R, "C0": C0, "T0": T0}
+
+
 def cstr_linearize(xs, us, ps, dt):
     """Linearise at the steady state and discretise: returns (A, B, Bp)
     (reference cstr_linearize, src/cstr.c:89-132)."""

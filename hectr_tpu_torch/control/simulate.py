@@ -14,12 +14,14 @@ state batched [B, n] and one regulator call per step for all of them
 ``__graft_entry__.py`` ``one_loop_step``).
 
 On a CUDA device the loop's own stages of a step (the plant, the time
-update, the next step's measurement update and selector) replay as one
-CUDA graph (``StageGraph``), so a step costs the host the regulator's
-call, one graph launch and a few copies; the graph and the stages'
-constants stay on the device across episodes while the model, plant,
-dt, device and batch stay the same.  Elsewhere the stages run
-uncaptured.
+update, the next step's measurement update and selector) take one
+launch: for the CSTR plant (``plants.cstr``'s right-hand side and
+Jacobian) the hand-written kernel K13 (``StageKernel``,
+``ops.stages_cuda``), for any other plant one CUDA graph of PyTorch's
+kernels (``StageGraph``), so a step costs the host the regulator's call
+and that launch.  The stages' constants (and the graph) stay on the
+device across episodes while the model, plant, dt and device (and the
+batch) stay the same.  Elsewhere the stages run uncaptured.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 
 from hectr_tpu_torch.config import resolve_device
 from hectr_tpu_torch.control.mpc import mpc_gains
+from hectr_tpu_torch.control.plants.cstr import (cstr_jacobian, cstr_ode,
+                                                 cstr_scalars)
 from hectr_tpu_torch.control.riccati import dlqr
 from hectr_tpu_torch.control.stages import (
     actuate,
@@ -44,6 +48,7 @@ from hectr_tpu_torch.control.stages import (
     selector_matrix,
     weighting_matrices,
 )
+from hectr_tpu_torch.ops import stages_cuda
 from hectr_tpu_torch.utils.pmu import count, span
 from hectr_tpu_torch.utils.rows import matvec
 
@@ -243,8 +248,8 @@ class StageGraph:
     the step uncaptured (a real step, returned), then captures it into a
     new graph; a call with the key copies the inputs into the graph's,
     replays it and returns copies of its outputs, never the outputs
-    themselves.  ``pmu.COUNTS`` counts ``loop.uncaptured``,
-    ``loop.capture`` and ``loop.replay``."""
+    themselves; ``observe`` runs uncaptured.  ``pmu.COUNTS`` counts
+    ``loop.uncaptured``, ``loop.capture`` and ``loop.replay``."""
 
     def __init__(self):
         self.values = self.constants = None
@@ -263,6 +268,9 @@ class StageGraph:
     def free(self) -> None:
         self.key = self.graph = None
         self.inputs = self.outputs = ()
+
+    def observe(self, x, xhatm, dhatm, rsp, k):
+        return self.constants.observe(x, xhatm, dhatm, rsp, k)
 
     def step(self, x, u, p, xhat, dhat, rsp, k, then_observe):
         tensors = (x, u, p, xhat, dhat, rsp)
@@ -295,21 +303,72 @@ class StageGraph:
         return out
 
 
-# the loop's stage graph on a CUDA device: one key at a time
+class StageKernel:
+    """``Stages.step`` and ``Stages.observe`` for the CSTR plant on a CUDA
+    device, each one launch of K13 (``ops.stages_cuda.loop_stages``),
+    which reads its inputs where they lie and hands out views of one new
+    output a call.
+
+    ``stages`` gives the constants for a model, plant, dt and device, and
+    packs them into K13's buffer, both kept while those values stay the
+    same.  ``pmu.COUNTS`` counts ``loop.kernel`` (a step) and
+    ``loop.observe`` (an episode's first measurement update and
+    selector)."""
+
+    def __init__(self):
+        self.values = self.constants = self.packed = None
+
+    def stages(self, model: LinearModel, plant: Plant, dt: float,
+               device) -> Stages:
+        values = _values(model, plant, dt, device)
+        if values != self.values:
+            self.constants = Stages(model, plant, dt, device)
+            self.packed = stages_cuda.pack(self.constants, cstr_scalars())
+            self.values = values
+        return self.constants
+
+    def observe(self, x, xhatm, dhatm, rsp, k):
+        count("loop.observe")
+        with span("loop.stages.kernel", k):
+            return stages_cuda.loop_stages(self.packed, x, None, None, xhatm,
+                                           dhatm, rsp, stages_cuda.OBSERVE)[1:]
+
+    def step(self, x, u, p, xhat, dhat, rsp, k, then_observe):
+        count("loop.kernel")
+        with span("loop.stages.kernel", k):
+            if not then_observe:
+                x = stages_cuda.loop_stages(self.packed, x, u, p, xhat, dhat,
+                                            rsp, stages_cuda.STEP)[0]
+                return x, None, None, None, None
+            return stages_cuda.loop_stages(self.packed, x, u, p, xhat, dhat,
+                                           rsp, stages_cuda.STEP_OBSERVE)
+
+
+# the loop's stages on a CUDA device: K13 for the CSTR, a graph (one key at
+# a time) for any other plant
+_KERNEL = StageKernel()
 _GRAPH = StageGraph()
 
 
-def _captures(device) -> bool:
-    """Whether the loop's stages replay as a CUDA graph on `device`: on a
-    CUDA device; elsewhere they run uncaptured."""
-    return device.type == "cuda"
+def _runner(plant: Plant, device):
+    """What runs the loop's stages on `device`, one launch a step: on a CUDA
+    device K13 (``_KERNEL``) for the CSTR plant, whose right-hand side and
+    Jacobian K13 computes itself (``plant.ode`` and ``plant.jacobian`` are
+    ``plants.cstr``'s, by identity), and the stage graph (``_GRAPH``) for
+    any other plant; None elsewhere, where the stages run uncaptured."""
+    if device.type != "cuda":
+        return None
+    if plant.ode is cstr_ode and plant.jacobian is cstr_jacobian:
+        return _KERNEL
+    return _GRAPH
 
 
 def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
                  regulator_state, horizon, rsp):
     """The step loop of `simulate` over states [*lead, n], with p_seq
-    [*lead, N, np].  On a CUDA device the stages of every step replay as
-    one CUDA graph (``StageGraph``), whose constants stay on the device
+    [*lead, N, np].  On a CUDA device the stages of every step take one
+    launch, K13 for the CSTR plant (``StageKernel``), a CUDA graph for
+    any other (``StageGraph``), their constants kept on the device
     between episodes; elsewhere they run uncaptured, their constants
     built for the call."""
     device = resolve_device(device)
@@ -321,12 +380,11 @@ def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
     nu = np.shape(model.B)[1]
     lead = p_seq.shape[:-2]
     with span("loop.episode_start"):
-        if _captures(device):
-            stages = _GRAPH.stages(model, plant, dt, device)
-            step = _GRAPH.step
+        runner = _runner(plant, device)
+        if runner is None:
+            stages = runner = Stages(model, plant, dt, device)
         else:
-            stages = Stages(model, plant, dt, device)
-            step = stages.step
+            stages = runner.stages(model, plant, dt, device)
         rsp_v = torch.zeros((*lead, nu), dtype=torch.float64, device=device) \
             if rsp is None else _f64(rsp, device)
         p_seq = _f64(p_seq, device)
@@ -337,15 +395,15 @@ def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
                             device=device)
     reg_state = regulator_state
     x_traj, u_traj = [], []
-    xhat, dhat, xr, ur = stages.observe(x, xhatm, dhatm, rsp_v, 0)
+    xhat, dhat, xr, ur = runner.observe(x, xhatm, dhatm, rsp_v, 0)
     for k in range(N):
         uhat = ur if k == 0 else u
         with span("loop.regulator", k):
             u, reg_state = regulator(reg_state, xhat, uhat, xr, ur)
         x_traj.append(x)
         u_traj.append(u)
-        x, xhat, dhat, xr, ur = step(x, u, p_seq[..., k, :], xhat, dhat,
-                                     rsp_v, k, k + 1 < N)
+        x, xhat, dhat, xr, ur = runner.step(x, u, p_seq[..., k, :], xhat,
+                                            dhat, rsp_v, k, k + 1 < N)
     x_traj.append(x)
 
     with span("loop.trajectories"):

@@ -16,7 +16,8 @@ from __future__ import annotations
 import contextlib
 
 from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
-                                 ntt_cuda, ntt_exchange_cuda, rns_cuda)
+                                 ntt_cuda, ntt_exchange_cuda, rns_cuda,
+                                 stages_cuda)
 
 
 def counters() -> list[dict]:
@@ -25,7 +26,7 @@ def counters() -> list[dict]:
             ntt_exchange_cuda.LAUNCHES, ntt_exchange_cuda.LAUNCH_SHAPES,
             keyswitch_cuda.LAUNCHES, keyswitch_cuda.LAUNCH_SHAPES,
             rns_cuda.LAUNCHES, rns_cuda.OP_LAUNCHES, codec_cuda.LAUNCHES,
-            mulmod_cuda.LAUNCHES]
+            mulmod_cuda.LAUNCHES, stages_cuda.LAUNCHES]
 
 
 class Replayed:

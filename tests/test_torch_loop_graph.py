@@ -5,7 +5,9 @@ On the CPU: ``stiff_step``'s LAPACK solve without its check bit-equal to
 ``torch.linalg.solve``; the card's pivoted solve against LAPACK; the CPU
 loop uncaptured, counting nothing; the graph's keys, captures, copies
 and counts with a stand-in for the CUDA graph, bit-equal to the
-uncaptured loop.  On the card (marked ``cuda``; they skip elsewhere):
+uncaptured loop.  On the card (marked ``cuda``; they skip elsewhere),
+for a plant that K13 does not take (the CSTR's right-hand side
+wrapped; the CSTR's own stages are K13's, ``test_torch_loop_kernel.py``):
 episodes through the captured stages bit-equal to the uncaptured stages
 with the plaintext and the encrypted regulator, and what the graph adds
 to the card's peak memory.  The file imports neither jax nor the JAX
@@ -22,58 +24,15 @@ import pytest
 import torch
 
 from hectr_tpu_torch import cli
-from hectr_tpu_torch import config as cfg
 from hectr_tpu_torch.ckks import scheme as S
-from hectr_tpu_torch.ckks.gemv import bsgs_rotations
 from hectr_tpu_torch.control import ode
 from hectr_tpu_torch.control import simulate as sim
 from hectr_tpu_torch.control.plants import cstr
-from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+from hectr_tpu_torch.hempc import make_hempc_regulator
 from hectr_tpu_torch.utils import pmu
-
-CPU = torch.device("cpu")
-HORIZON = 4
-
-
-def disturbances(episodes_: int, steps: int, batch=()):
-    """Inlet-flow steps of 0.5-1.5x the reference's, one per episode and
-    plant: [episodes, *batch, steps, 1]."""
-    rng = np.random.default_rng(21)
-    scale = rng.uniform(0.5, 1.5, (episodes_, *batch, 1, 1))
-    return cli.disturbance(steps)[None] * scale
-
-
-def episodes(p, device, reg=None, sampler=None, setup=cli.cstr_setup):
-    """Closed-loop episodes back to back (p [E, N, 1] for one plant,
-    [E, B, N, 1] for B plants) through `reg` (the plaintext MPC regulator
-    where None), with one encryption sampler where given: x, u and (with
-    a sampler) the canary of each, on the host."""
-    out = []
-    for pe in p:
-        batch = pe.shape[:-2]
-        model, plant = setup()
-        kw = dict(regulator=reg, horizon=HORIZON)
-        if sampler is not None:
-            kw["regulator_state"] = hempc_init_state(sampler, device, batch)
-        if batch:
-            x, u, state = sim.simulate_batch(model, plant, pe, 1.0,
-                                             pe.shape[-2], device, **kw)
-        else:
-            x, u, state = sim.simulate(model, plant, pe, 1.0, pe.shape[-2],
-                                       device, return_state=True, **kw)
-        out.append((x, u, None if sampler is None else state[1].cpu()))
-    return out
-
-
-def assert_bit_equal(a, b):
-    assert len(a) == len(b)
-    for (x, u, c), (x1, u1, c1) in zip(a, b):
-        assert np.array_equal(x, x1) and np.array_equal(u, u1)
-        assert (c is None and c1 is None) or torch.equal(c, c1)
-
-
-def loop_counts() -> dict:
-    return {k: v for k, v in pmu.COUNTS.items() if k.startswith("loop.")}
+from loop_cases import (CPU, HORIZON, assert_bit_equal, card,  # noqa: F401
+                        disturbances, episodes, graph_setup, loop_counts,
+                        regulator_and_sampler, secure, shifted_setup)
 
 
 # ---- the stiff step's solves ------------------------------------------------
@@ -141,18 +100,20 @@ def test_pivoted_solve_of_the_plants_systems():
 
 
 def test_cpu_loop_stays_uncaptured_and_counts_nothing(monkeypatch):
-    """On the CPU no graph is made and nothing is counted; the loop's
-    stage graph is left as it was."""
+    """On the CPU no graph is made, K13 is not packed for and nothing is
+    counted; the loop's stage graph and kernel are left as they were."""
     def no_graph(*args, **kwargs):
         raise AssertionError("a CUDA graph on the CPU path")
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
     monkeypatch.setattr(sim, "_GRAPH", sim.StageGraph())
+    monkeypatch.setattr(sim, "_KERNEL", sim.StageKernel())
     pmu.reset_counts()
     episodes(disturbances(2, 3), CPU)
     episodes(disturbances(1, 3, (2,)), CPU)
     assert dict(pmu.COUNTS) == {}
     assert sim._GRAPH.graph is None and sim._GRAPH.constants is None
+    assert sim._KERNEL.constants is None
 
 
 class StandIn:
@@ -182,14 +143,6 @@ class Capture:
         return False
 
 
-def shifted_setup():
-    """The CSTR setup with the steady-state inlet flow 5% higher: other
-    plant values, so other constants."""
-    model, plant = cli.cstr_setup()
-    return model, sim.Plant(ode=plant.ode, jacobian=plant.jacobian,
-                            xs=plant.xs, us=plant.us, ps=plant.ps * 1.05)
-
-
 def test_stage_graph_bookkeeping_with_a_stand_in_graph(monkeypatch):
     """``StageGraph`` on the CPU with a stand-in for the CUDA graph:
     one capture a key and a replay at every later step; a model and
@@ -206,7 +159,7 @@ def test_stage_graph_bookkeeping_with_a_stand_in_graph(monkeypatch):
             (disturbances(1, 2, (2,)), shifted_setup)]
     want = [episodes(p, CPU, setup=setup) for p, setup in runs]
 
-    monkeypatch.setattr(sim, "_captures", lambda device: True)
+    monkeypatch.setattr(sim, "_runner", lambda plant, device: sim._GRAPH)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", StandIn)
     monkeypatch.setattr(torch.cuda, "graph", Capture)
     handed = []
@@ -241,37 +194,13 @@ def test_stage_graph_bookkeeping_with_a_stand_in_graph(monkeypatch):
 # ---- on the card ------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA graphs have no CPU mode)")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
-@pytest.fixture(scope="module")
-def secure(card):
-    """The benchmark configuration's ring (reference-hempc-secure) on the
-    card, BSGS rotation keys."""
-    return cli.hempc_keys(cfg.REFERENCE_HEMPC_SECURE, 0, card,
-                          bsgs_rotations(16))
-
-
-def regulator_and_sampler(kind, request, card):
-    """(regulator, a maker of its samplers): the plaintext MPC regulator
-    (no sampler), or the encrypted one at reference-hempc-secure."""
-    if kind == "plaintext":
-        return None, lambda: None
-    ctx, keys, rk = request.getfixturevalue("secure")
-    reg = make_hempc_regulator(ctx, keys, rk, *cli.cstr_setup(), HORIZON)
-    return reg, lambda: S.TorchSampler(3, card)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [(), (4,)])
 @pytest.mark.parametrize("kind", ["plaintext", "encrypted"])
 def test_captured_stages_bit_equal_uncaptured(card, request, monkeypatch,
                                               kind, batch):
-    """Two 40-step episodes, one plant and four, with the plaintext and
+    """Two 40-step episodes of a plant K13 does not take (the CSTR's
+    right-hand side wrapped), one plant and four, with the plaintext and
     the encrypted regulator: moves, states and canaries through the
     replayed stages bit-equal to the same stages run uncaptured on the
     card; one capture, 79 replays, one uncaptured step.  The plaintext
@@ -280,12 +209,12 @@ def test_captured_stages_bit_equal_uncaptured(card, request, monkeypatch,
     p = disturbances(2, 40, batch)
     monkeypatch.setattr(sim, "_GRAPH", sim.StageGraph())
     pmu.reset_counts()
-    got = episodes(p, card, reg, sampler())
+    got = episodes(p, card, reg, sampler(), setup=graph_setup)
     torch.cuda.synchronize()
     counts = loop_counts()
     with monkeypatch.context() as m:
-        m.setattr(sim, "_captures", lambda device: False)
-        want = episodes(p, card, reg, sampler())
+        m.setattr(sim, "_runner", lambda plant, device: None)
+        want = episodes(p, card, reg, sampler(), setup=graph_setup)
     assert_bit_equal(got, want)
     assert counts == {"loop.uncaptured": 1, "loop.capture": 1,
                       "loop.replay": 79}
@@ -300,9 +229,10 @@ def test_captured_stages_bit_equal_uncaptured(card, request, monkeypatch,
 def test_stage_graph_adds_under_half_a_megabyte_to_the_peak(card, secure,
                                                            monkeypatch):
     """The card's peak memory over a one-plant episode of the encrypted
-    loop at reference-hempc-secure, with the stages uncaptured, then
-    with the stage graph captured in that episode and replayed: less than
-    0.5 MB apart."""
+    loop at reference-hempc-secure (a plant K13 does not take: the CSTR's
+    right-hand side wrapped), with the stages uncaptured, then with the
+    stage graph captured in that episode and replayed: less than 0.5 MB
+    apart."""
     ctx, keys, rk = secure
     reg = make_hempc_regulator(ctx, keys, rk, *cli.cstr_setup(), HORIZON)
     sampler = S.TorchSampler(5, card)
@@ -313,12 +243,12 @@ def test_stage_graph_adds_under_half_a_megabyte_to_the_peak(card, secure,
         torch.cuda.synchronize()
         gc.collect()
         torch.cuda.reset_peak_memory_stats(card)
-        episodes(pe[None], card, reg, sampler)
+        episodes(pe[None], card, reg, sampler, setup=graph_setup)
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated(card)
 
     with monkeypatch.context() as m:
-        m.setattr(sim, "_captures", lambda device: False)
+        m.setattr(sim, "_runner", lambda plant, device: None)
         peak(p[0])                       # the regulator's own capture
         without = peak(p[1])
     with_graph = peak(p[2])

@@ -28,7 +28,7 @@ from hectr_tpu_torch.control.simulate import simulate, simulate_batch
 from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
 from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, launches,
                                  mulmod_cuda, ntt_cuda, ntt_exchange_cuda,
-                                 rns_cuda)
+                                 rns_cuda, stages_cuda)
 from hectr_tpu_torch.utils import pmu
 
 CPU = torch.device("cpu")
@@ -39,7 +39,7 @@ SMALL = cfg.CKKSPreset(name="graph-test", logn=10, slots=16, scale_bits=50,
 
 def reset_all_launches():
     for mod in (ntt_cuda, ntt_exchange_cuda, keyswitch_cuda, rns_cuda,
-                codec_cuda, mulmod_cuda):
+                codec_cuda, mulmod_cuda, stages_cuda):
         mod.reset_launches()
 
 
