@@ -38,20 +38,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      CSTR loop's stages K13 at one plant and 1,024 within 1e-13 of the
      uncaptured stages in each of its modes (step, step with the next
      observation, observation), timed in the second beside its bound, the
-     uncaptured stages and
-     their CUDA graph, with the host's us a step through each
-     (hectr_tpu_torch.bench.stages_kernels)
+     uncaptured stages and their CUDA graph, with the host's us a step
+     through the loop's K13 holder (hectr_tpu_torch.bench.stages_kernels)
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
-     "stage-graph" (after 3, on its keys): the stage graph, which runs
-     the stages of every plant but the CSTR on the card, on the CSTR
-     with its right-hand side wrapped (a plant K13 does not take): the
-     encrypted loop at one plant and 4 (loop b's disturbance scaled by
-     1 + b/4), 40 steps, bit-equal (x, u, canary) to the same loops with
-     the stages uncaptured, one plant <= 5e-10 per channel from phase 3's
-     plaintext twin; its loop.* counts, reset before, are 2 uncaptured
-     steps, 2 captures and 78 replays, with no K13 launch
   4. the FLAGSHIP loop (logN=15, 24-prime chain, BSGS rotation keys,
      horizon 4): <= 2e-9 per channel, canary < 1e-5, final state
   5. the multiply-ceiling probe K3 (hectr_tpu_torch.bench.vpu_ceiling):
@@ -157,6 +148,8 @@ import time
 
 import numpy as np
 import torch
+
+from hectr_tpu_torch.ops import launches as launch_counters
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FLAGSHIP_FINAL_STATE = np.array([0.895, 321.8075, 0.7655])
@@ -379,7 +372,7 @@ def codec_kernels(device, kernel_rows):
 def stages_kernels(kernel_rows):
     """K13 held to the uncaptured stages at ``bench.stages_kernels``' cases,
     timed there beside its bound, the uncaptured stages and their CUDA
-    graph, with the host's us a step through each."""
+    graph, with the host's us a step through the loop's K13 holder."""
     from hectr_tpu_torch.bench import stages_kernels as SK
 
     device = torch.device("cuda", torch.cuda.current_device())
@@ -393,39 +386,12 @@ def stages_kernels(kernel_rows):
               f"{rec['share_of_bound']:.5f} of it; uncaptured stages "
               f"{rec['plain_ms']:.4f} ms, their graph "
               f"{rec['plain_graph_ms']:.4f} ms in {rec['plain_launches']} "
-              f"launches; host "
-              f"{rec['host_us']:.2f} us a step, the graph's "
-              f"{rec['graph_host_us']:.2f} us", flush=True)
+              f"launches; host {rec['host_us']:.2f} us a step", flush=True)
         if rec["case"] == "one plant":
             kernel_rows["loop_stages"].update(
                 max_abs_err=rec["max_gap"], ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                 bound_by=rec["bound_by"], library_ms=None)
-
-
-def reset_launches() -> None:
-    from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
-                                     ntt_cuda, ntt_exchange_cuda, rns_cuda,
-                                     stages_cuda)
-
-    ntt_cuda.reset_launches()
-    mulmod_cuda.reset_launches()
-    ntt_exchange_cuda.reset_launches()
-    keyswitch_cuda.reset_launches()
-    rns_cuda.reset_launches()
-    codec_cuda.reset_launches()
-    stages_cuda.reset_launches()
-
-
-def read_launches() -> dict:
-    from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, mulmod_cuda,
-                                     ntt_cuda, ntt_exchange_cuda, rns_cuda,
-                                     stages_cuda)
-
-    return {**ntt_cuda.LAUNCHES, **mulmod_cuda.LAUNCHES,
-            **ntt_exchange_cuda.LAUNCHES, **keyswitch_cuda.LAUNCHES,
-            **rns_cuda.LAUNCHES, **codec_cuda.LAUNCHES,
-            **stages_cuda.LAUNCHES}
 
 
 # the launches a loop phase sums: K1/K2, the key-switch kernels K6-K8, the
@@ -472,12 +438,12 @@ def run_loop(label, preset, rotations, device, card):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
-    reset_launches()
+    launch_counters.reset()
     t0 = time.perf_counter()
     x, u, canary = cli.run_cstr_hempc(ctx, keys, rot_keys, 40, 0, device)
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     print_launch_shapes(label, 40, "step")
     print_rns_launches(label, 40, "step")
 
@@ -494,90 +460,6 @@ def run_loop(label, preset, rotations, device, card):
     return x, u, dev, canary, launches, (ctx, keys, rot_keys, x_pt, u_pt)
 
 
-def wrapped_ode(x, u, p):
-    """The CSTR's right-hand side behind another function: a plant K13
-    does not take, whose stages the card runs as the stage graph."""
-    from hectr_tpu_torch.control.plants import cstr_ode
-
-    return cstr_ode(x, u, p)
-
-
-def phase_stage_graph(device, reference, card):
-    """The stage graph (``control.simulate.StageGraph``) on a plant K13
-    does not take: the REFERENCE_HEMPC encrypted loop on phase 3's keys,
-    one plant and 4, bit-equal to the same loops with the stages
-    uncaptured; its loop.* counts."""
-    from hectr_tpu_torch import cli
-    from hectr_tpu_torch.ckks.scheme import TorchSampler
-    from hectr_tpu_torch.control import simulate as sim
-    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
-    from hectr_tpu_torch.ops import stages_cuda
-    from hectr_tpu_torch.utils import pmu
-
-    ctx, keys, rot_keys, x_pt, u_pt = reference
-    model, cstr_plant = cli.cstr_setup()
-    plant = sim.Plant(ode=wrapped_ode, jacobian=cstr_plant.jacobian,
-                      xs=cstr_plant.xs, us=cstr_plant.us, ps=cstr_plant.ps)
-    check(sim._runner(plant, device) is sim._GRAPH,
-          "stage-graph: the wrapped plant does not take the stage graph")
-    reg = make_hempc_regulator(ctx, keys, rot_keys, model, plant, 4)
-    p = cli.disturbance(40)
-
-    def loops():
-        """x, u and canaries of one plant, then of 4, on fresh draws."""
-        out = []
-        for batch in ((), (4,)):
-            state = hempc_init_state(TorchSampler(7, device), device, batch)
-            if batch:
-                p_b = np.stack([p * (1 + b / 4) for b in range(batch[0])])
-                x, u, (_, canary) = sim.simulate_batch(
-                    model, plant, p_b, 1.0, 40, device, regulator=reg,
-                    regulator_state=state)
-            else:
-                x, u, (_, canary) = sim.simulate(
-                    model, plant, p, 1.0, 40, device, regulator=reg,
-                    regulator_state=state, return_state=True)
-            out.append((x, u, canary.cpu()))
-        torch.cuda.synchronize()
-        return out
-
-    pmu.reset_counts()
-    reset_launches()
-    t0 = time.perf_counter()
-    got = loops()
-    t_graph = time.perf_counter() - t0
-    counts = {k: v for k, v in pmu.COUNTS.items() if k.startswith("loop.")}
-    k13 = stages_cuda.LAUNCHES["loop_stages"]
-    runner = sim._runner
-    sim._runner = lambda plant, device: None   # the stages uncaptured
-    try:
-        t0 = time.perf_counter()
-        want = loops()
-        t_plain = time.perf_counter() - t0
-    finally:
-        sim._runner = runner
-    for (x, u, c), (x1, u1, c1), n in zip(got, want, (1, 4)):
-        check(np.array_equal(x, x1) and np.array_equal(u, u1)
-              and torch.equal(c, c1),
-              f"stage-graph: {n} plant(s) through the graph differ from the "
-              f"uncaptured stages")
-        check(bool((c < 1e-5).all()), f"stage-graph: canary {c}")
-    dev = deviations(got[0][0], got[0][1], x_pt, u_pt)
-    check(bool((dev <= 5e-10).all()), f"stage-graph deviation {dev}")
-    want_counts = {"loop.uncaptured": 2, "loop.capture": 2,
-                   "loop.replay": 78}
-    check(counts == want_counts and k13 == 0,
-          f"stage-graph: counts {counts}, K13 launches {k13}; want "
-          f"{want_counts} and none")
-    pmu.reset_counts()
-    print(f"[stage-graph] the wrapped CSTR (stages by StageGraph) at 1 and 4 "
-          f"plants x 40 steps bit-equal to the uncaptured stages (x, u, "
-          f"canary); one plant's max |encrypted - plaintext| per channel "
-          f"{dev.tolist()}; counts {json.dumps(counts)}, K13 launches {k13};"
-          f" {t_graph:.3f} s through the graph, {t_plain:.3f} s uncaptured "
-          f"on {card}", flush=True)
-
-
 def phase_ceiling(device, kernel_rows, card):
     """K3: the multiply-ceiling probe, and the NTT kernel's share of it."""
     from hectr_tpu_torch.bench import HBM_BYTES_PER_S, lazy_mult_peak_per_s
@@ -590,9 +472,9 @@ def phase_ceiling(device, kernel_rows, card):
           f"3, 16 and over [{V.ROWS}, {V.LANES}] x {V.R_CHAIN} x {V.CALLS}; "
           f"max |kernel - plain| = {err}", flush=True)
     plain = V.plain_ms(x0, c)
-    reset_launches()
+    launch_counters.reset()
     res = V.probe(x0, c)
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     check(launches["mulmod_chain"] > 0, "mulmod chain kernel never launched "
           "in the probe")
     sass = V.sass_loop_body(
@@ -640,7 +522,7 @@ def phase_fused(device, flagship, card):
 
     ctx, keys, rot_keys, x_pt, u_pt = flagship
     model, plant = cli.cstr_setup()
-    reset_launches()
+    launch_counters.reset()
     t0 = time.perf_counter()
     mats = make_fused_materials(ctx, rot_keys, model, plant, 4, device)
     reg = make_fused_regulator(ctx, keys, model, plant, 4, mats)
@@ -650,7 +532,7 @@ def phase_fused(device, flagship, card):
         horizon=4, return_state=True)
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     print_launch_shapes("fused", 40, "step")
     print_rns_launches("fused", 40, "step")
     canary = float(canary)
@@ -720,7 +602,7 @@ def phase_parallel(device, flagship, card, kernel_rows):
 
     # the sharded path alone, its launches counted; the single-device
     # references and the comparisons follow
-    reset_launches()
+    launch_counters.reset()
     t0 = time.perf_counter()
     sharded = {}
     for (label, t, _), x in zip(cases, inputs):
@@ -737,7 +619,7 @@ def phase_parallel(device, flagship, card, kernel_rows):
               for D, o in ops.items()}
     torch.cuda.synchronize()
     t_sharded = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     print_launch_shapes("parallel", 1, "phase")
     print_rns_launches("parallel", 1, "phase")
     exchange_shapes = collections.Counter(EX.LAUNCH_SHAPES)
@@ -1007,7 +889,7 @@ def large_ring_chain(logn, device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
-    reset_launches()
+    launch_counters.reset()
     keys = S.keygen(ctx, S.TorchSampler(0, device), device)
     v = torch.linspace(-1, 1, 16, dtype=torch.float64, device=device)
     w = torch.linspace(0.5, -0.5, 16, dtype=torch.float64, device=device)
@@ -1020,7 +902,7 @@ def large_ring_chain(logn, device, card):
     err = float((re - v * w).abs().max())
     err_im = float(im.abs().max())
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     shapes = collections.Counter(EX.LAUNCH_SHAPES)
     peak = torch.cuda.max_memory_allocated(device)
     del ct, pt, out, re, im
@@ -1165,14 +1047,14 @@ def phase_batch(device, flagship, card):
     total = dict.fromkeys(LOOP_KERNELS, 0)
 
     def tally():
-        launches = read_launches()
+        launches = launch_counters.by_kernel()
         for k in total:
             total[k] += launches[k]
 
     def closed_loop(label, reg, B, bar):
         p = np.stack([cli.disturbance(40) * (1 + b / B) for b in range(B)])
         torch.cuda.reset_peak_memory_stats(device)
-        reset_launches()
+        launch_counters.reset()
         t0 = time.perf_counter()
         x, u, (_, canary) = simulate_batch(
             model, plant, p, 1.0, 40, device, regulator=reg,
@@ -1227,7 +1109,7 @@ def phase_batch(device, flagship, card):
         BB.run_rounds(reg, state, xs[..., :1, :], u0, 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        reset_launches()
+        launch_counters.reset()
         t0 = time.perf_counter()
         us, state = BB.run_rounds(reg, state, xs, u0, 1)
         torch.cuda.synchronize()
@@ -1297,13 +1179,13 @@ def phase_limb(device, flagship, card):
 
     def tally():
         shard_shapes.update(ntt_cuda.LAUNCH_SHAPES)
-        launches = read_launches()
+        launches = launch_counters.by_kernel()
         for name in total:
             total[name] += launches[name]
 
     # the ops on local limb meshes of 2 and 3, the sharded path alone
     # counted; the single-device references and comparisons follow
-    reset_launches()
+    launch_counters.reset()
     got = {}
     for D in (2, 3):
         ops = LimbOps(ctx, make_mesh(limb=D, device=device))
@@ -1370,7 +1252,7 @@ def phase_limb(device, flagship, card):
     for label, r in (("sharded", reg_l), ("unsharded", reg)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        reset_launches()
+        launch_counters.reset()
         ops.gathered.clear()
         t0 = time.perf_counter()
         x, u, (_, canary) = simulate_batch(
@@ -1533,7 +1415,7 @@ def phase_qp(device, card):
     total = dict.fromkeys(LOOP_KERNELS, 0)
 
     def tally():
-        launches = read_launches()
+        launches = launch_counters.by_kernel()
         for k in total:
             total[k] += launches[k]
 
@@ -1552,7 +1434,7 @@ def phase_qp(device, card):
         check(bool((canary < 1e-5).all()), f"flagship-qp {label} canary "
               f"{canary}")
 
-    reset_launches()
+    launch_counters.reset()
     x, u, canary, step_s = BB.qp_closed_loop(reg, model, plant, p_seq, device)
     tally()
     print_launch_shapes("flagship-qp", steps, "step")
@@ -1575,7 +1457,7 @@ def phase_qp(device, card):
     check(B0_4 == B0 and bool((cert4 <= B0).all()),
           f"4 loops: certificates {cert4} outside the envelope {B0}")
     torch.cuda.reset_peak_memory_stats(device)
-    reset_launches()
+    launch_counters.reset()
     x, u, canary, step_s = BB.qp_closed_loop(reg, model, plant, p4, device)
     tally()
     shapes = sorted({shape for _, shape in ntt_cuda.LAUNCH_SHAPES})
@@ -1633,7 +1515,7 @@ def phase_he(device, card):
     from hectr_tpu_torch.ckks.ntt import intt
 
     xhat, xr, uhat, ur, K_A, K_B = facade_problem()
-    reset_launches()
+    launch_counters.reset()
     t0 = time.perf_counter()
     hc = he.hectx_init(12, 109, 16, 50, seed=0, verbose=True, device=device)
     he.he_keypair(hc)
@@ -1649,7 +1531,7 @@ def phase_he(device, card):
     got = he.he_dcd(hc, pt).cpu().numpy()
     torch.cuda.synchronize()
     t_seq = time.perf_counter() - t0
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     print_launch_shapes("he", 1, "call sequence")
     want = uhat - (K_A @ (xhat - xr) + K_B @ (uhat - ur))
     err = float(np.max(np.abs(got.real - want.real)))
@@ -1736,7 +1618,7 @@ def phase_medium(device, card):
     check(max(e_embed, e_unembed, e_round) <= 1e-12,
           "medium: FFT embedding off on the card")
 
-    reset_launches()
+    launch_counters.reset()
     # 2. encrypt / decrypt of s complex slots
     t0 = time.perf_counter()
     keys = S.keygen(ctx, S.TorchSampler(61, device), device)
@@ -1798,7 +1680,7 @@ def phase_medium(device, card):
     vg = rng.uniform(-2, 2, s)
     g = dense_gemv(ctx, keys, M, vg, device, True, 3,
                    S.TorchSampler(65, device), enc)
-    launches = read_launches()
+    launches = launch_counters.by_kernel()
     print_launch_shapes("medium", 1, "phase (keygen, chain, 3 gemvs)")
     print(f"[medium] dense {s} x {s} BSGS gemv at k={k}: {g['n_keys']} "
           f"compact keys ({g['key_bytes']} B on the card) in "
@@ -1939,7 +1821,7 @@ def main() -> None:
         phase_kernels(device, kernel_rows)
 
     with timer.section("reference-hempc"):
-        x, u, dev, canary, launches_ref, reference = run_loop(
+        x, u, dev, canary, launches_ref, _ = run_loop(
             "reference-hempc", REFERENCE_HEMPC, None, device, card)
     check(bool((dev <= 5e-10).all()), f"reference deviation {dev}")
     check(canary < 1e-5, f"reference canary {canary}")
@@ -1950,9 +1832,6 @@ def main() -> None:
     print(f"[reference-hempc] golden cstr-hempc.bin max relative error per "
           f"channel {rel.tolist()}", flush=True)
     check(bool((rel < 1e-6).all()), f"golden mismatch {rel}")
-    with timer.section("stage-graph"):
-        phase_stage_graph(device, reference, card)
-    del reference
 
     with timer.section("flagship"):
         x, u, dev, canary, launches_flag, flagship = run_loop(

@@ -54,13 +54,6 @@ CTCT_ITERS = 3
 HORIZON = 4
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def profile_kernels(fn) -> dict:
     """CUDA kernel launches and their device time (ms) in one call of fn,
     by torch.profiler."""
@@ -76,12 +69,9 @@ def kernel_totals(averages) -> dict:
     """Launches and device ms of the device operations among
     ``key_averages()`` rows: the ranges the profiler mirrors onto the
     device's timeline (the port's spans) are no launches."""
-    launches, us = 0, 0.0
-    for evt in averages:
-        if pmu.is_device_op(evt):
-            launches += evt.count
-            us += _device_us(evt)
-    return {"kernel_launches": launches, "device_ms": us / 1e3}
+    us, launches = pmu.device_ops(averages)
+    return {"kernel_launches": sum(launches.values()),
+            "device_ms": sum(us.values()) / 1e3}
 
 
 def protocol_inputs(B: int, steps: int, device, seed: int = 0):

@@ -33,9 +33,7 @@ cost.  The last recording and the first profiled window are reduced:
   * the same for the loop's stages (``control.simulate``): ``loop.*``
     counts, among them ``loop.kernel``, a step's K13 launch for the CSTR
     plant (``StageKernel``), and the device ms and launches a step under
-    ``loop.stages.kernel`` (K13) and ``loop.stages.replay`` (the stage
-    graph of any other plant, ``StageGraph``), under which the plant's,
-    estimator's and selector's kernels all fall.
+    ``loop.stages.kernel``, K13's launches.
 
 Each loop keeps one encryption sampler over its runs, so its regulator
 captures once (in the first, warm run) and replays after; the CSTR
@@ -48,7 +46,6 @@ listening (``span_off_us``).
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import json
 import sys
@@ -74,23 +71,10 @@ SERVED = 1024      # plants of the benchmark's served cell
 TURNS = 3          # readings of each host-clock step time
 
 
-def _device_us(evt) -> float:
-    """An event's own device time in us, across torch versions."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def by_kernel(averages, steps: int) -> dict:
     """Device ms and launches a step, in all, by kernel and by kernel
     class, from ``prof.key_averages()``."""
-    us = collections.Counter()
-    launches = collections.Counter()
-    for evt in averages:
-        if pmu.is_device_op(evt):
-            us[evt.key] += _device_us(evt)
-            launches[evt.key] += evt.count
+    us, launches = pmu.device_ops(averages)
     device_us = sum(us.values())
     if device_us == 0:
         sys.exit("the profiler recorded no device time")
@@ -183,7 +167,6 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
            "loop_counts": {k: v for k, v in pmu.COUNTS.items()
                            if k.startswith("loop.")},
            "loop_kernel": spans["by_span"].get("loop.stages.kernel"),
-           "loop_replay": spans["by_span"].get("loop.stages.replay"),
            "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
                                 for name, row in rec.table.items()}}
     _print(label, out, rec, steps)
@@ -215,8 +198,7 @@ def _print(label: str, out: dict, rec, steps: int) -> None:
           f"{out['regulator_replay']}", file=err)
     print(f"-- loop stages: {out['loop_counts']} (loop.kernel "
           f"{out['loop_counts'].get('loop.kernel', 0)}); under "
-          f"loop.stages.kernel {out['loop_kernel']}; under "
-          f"loop.stages.replay {out['loop_replay']}", file=err)
+          f"loop.stages.kernel {out['loop_kernel']}", file=err)
     r = out["keyswitch_roofline"]
     print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
           f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",

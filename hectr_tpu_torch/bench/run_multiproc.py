@@ -321,7 +321,7 @@ def profile_transform(fwd, x, mesh, dev) -> dict:
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
-    from hectr_tpu_torch.bench.batch import _device_us
+    from hectr_tpu_torch.utils import pmu
 
     fwd(x)
     _sync(dev)
@@ -334,10 +334,8 @@ def profile_transform(fwd, x, mesh, dev) -> dict:
             fwd(x)
             _sync(dev)
             host_ms.append((time.perf_counter() - t0) * 1e3)
-    kernels = {}
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            kernels[evt.key[:72]] = [evt.count, _device_us(evt) / 1e3]
+    us, launches = pmu.device_ops(prof.key_averages())
+    kernels = {k[:72]: [launches[k], us[k] / 1e3] for k in us}
     return {"host_ms": host_ms, "device_ms_by_kernel": kernels}
 
 

@@ -18,11 +18,10 @@ disturbance row a strided view, as the loop passes it:
     3.35 TB/s, beside which one launch's latency is what bounds it;
   * the plain version: ``Stages.step`` uncaptured (CUDA events around
     back-to-back calls; its kernels wait on the host's launches), and the
-    same captured as one CUDA graph of PyTorch's kernels (what the loop
-    replayed before K13), by CUDA-graph replay, with its launches;
-  * the host's us a step through the loop's two holders, ``StageKernel``
-    (one K13 launch) and ``StageGraph`` (six input copies, the replay,
-    five clones), back to back on the host clock, ending in a
+    same captured as one CUDA graph of PyTorch's kernels, by CUDA-graph
+    replay, with its launches;
+  * the host's us a step through the loop's holder, ``StageKernel`` (one
+    K13 launch), back to back on the host clock, ending in a
     synchronize.
 
 One JSON line per case, the card's name and power limit last.
@@ -139,9 +138,8 @@ def measure(device) -> list[dict]:
         def plain():
             return stages.step(**ops, k=0, then_observe=True)
 
-        kernel_holder, graph_holder = sim.StageKernel(), sim.StageGraph()
-        for holder in (kernel_holder, graph_holder):
-            holder.stages(model, plant, 1.0, device)
+        holder = sim.StageKernel()
+        holder.stages(model, plant, 1.0, device)
         n = int(np.prod(rows))
         ms = cuda_graph_time_ms(kernel)
         bound_ms = stages_bytes(n, consts.nd) / HBM_BYTES_PER_S * 1e3
@@ -154,8 +152,7 @@ def measure(device) -> list[dict]:
             "plain_ms": cuda_time_ms(plain),
             "plain_graph_ms": cuda_graph_time_ms(plain),
             "plain_launches": profile_kernels(plain)["kernel_launches"],
-            "host_us": host_us(kernel_holder.step, ops),
-            "graph_host_us": host_us(graph_holder.step, ops)})
+            "host_us": host_us(holder.step, ops)})
     return out
 
 

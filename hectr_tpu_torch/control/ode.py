@@ -26,9 +26,10 @@ def stiff_step(f, jac, x, u, p, dt):
     x [..., n] with J [..., n, n]: one batched solve for a batch of
     states.  On the CPU it is LAPACK's LU solve (``solve_ex``, which
     checks nothing), each row bit-equal to its own solve; on the card it
-    is ``solve_pivoted``, which calls no library solver: it neither reads
-    a status back to the host nor takes a workspace, so the closed loop
-    captures it into a CUDA graph (``control.simulate``)."""
+    is ``solve_pivoted``, which calls no library solver, so it reads no
+    status back to the host, and whose pivot rule and order K13
+    (``ops.stages_cuda``) follows: the card's plain counterpart of K13's
+    plant step."""
     n = x.shape[-1]
     A = torch.eye(n, dtype=x.dtype, device=x.device) - dt * jac(x, u, p)
     b = f(x, u, p)

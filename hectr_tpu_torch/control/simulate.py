@@ -14,14 +14,14 @@ state batched [B, n] and one regulator call per step for all of them
 ``__graft_entry__.py`` ``one_loop_step``).
 
 On a CUDA device the loop's own stages of a step (the plant, the time
-update, the next step's measurement update and selector) take one
-launch: for the CSTR plant (``plants.cstr``'s right-hand side and
-Jacobian) the hand-written kernel K13 (``StageKernel``,
-``ops.stages_cuda``), for any other plant one CUDA graph of PyTorch's
-kernels (``StageGraph``), so a step costs the host the regulator's call
-and that launch.  The stages' constants (and the graph) stay on the
-device across episodes while the model, plant, dt and device (and the
-batch) stay the same.  Elsewhere the stages run uncaptured.
+update, the next step's measurement update and selector) for the CSTR
+plant (``plants.cstr``'s right-hand side and Jacobian) take one launch
+of the hand-written kernel K13 (``StageKernel``, ``ops.stages_cuda``),
+so a step costs the host the regulator's call and that launch; K13's
+constants stay on the device across episodes while the model, plant, dt
+and device stay the same.  Any other plant, and every plant off the
+card, runs the plain stages (``Stages``), their constants built for the
+call.
 """
 
 from __future__ import annotations
@@ -236,73 +236,6 @@ def _values(model: LinearModel, plant: Plant, dt: float, device) -> tuple:
               for a in arrays))
 
 
-class StageGraph:
-    """``Stages.step`` -- a step's plant and time update and the next
-    step's measurement update and selector -- as one CUDA graph, held
-    across episodes with the stages' constants.
-
-    ``stages`` gives the constants for a model, plant, dt and device,
-    kept while those values stay the same; other values free the graph
-    and build new constants.  A call of ``step`` whose six inputs have a
-    new key (their shapes and dtypes: the batch) frees the graph, runs
-    the step uncaptured (a real step, returned), then captures it into a
-    new graph; a call with the key copies the inputs into the graph's,
-    replays it and returns copies of its outputs, never the outputs
-    themselves; ``observe`` runs uncaptured.  ``pmu.COUNTS`` counts
-    ``loop.uncaptured``, ``loop.capture`` and ``loop.replay``."""
-
-    def __init__(self):
-        self.values = self.constants = None
-        self.key = self.graph = None
-        self.inputs = self.outputs = ()
-
-    def stages(self, model: LinearModel, plant: Plant, dt: float,
-               device) -> Stages:
-        values = _values(model, plant, dt, device)
-        if values != self.values:
-            self.free()
-            self.constants = Stages(model, plant, dt, device)
-            self.values = values
-        return self.constants
-
-    def free(self) -> None:
-        self.key = self.graph = None
-        self.inputs = self.outputs = ()
-
-    def observe(self, x, xhatm, dhatm, rsp, k):
-        return self.constants.observe(x, xhatm, dhatm, rsp, k)
-
-    def step(self, x, u, p, xhat, dhat, rsp, k, then_observe):
-        tensors = (x, u, p, xhat, dhat, rsp)
-        key = tuple((t.shape, t.dtype) for t in tensors)
-        if key != self.key:
-            return self._capture(key, tensors, k, then_observe)
-        count("loop.replay")
-        with span("loop.stages.replay", k):
-            for held, t in zip(self.inputs, tensors):
-                held.copy_(t)
-            self.graph.replay()
-            return tuple(t.clone() for t in self.outputs)
-
-    def _capture(self, key, tensors, k, then_observe):
-        self.free()
-        count("loop.uncaptured")
-        out = self.constants.step(*tensors, k, then_observe)
-        with span("loop.stages.capture", k):
-            inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                           for t in tensors)
-            graph = torch.cuda.CUDAGraph()
-            # unsafe calls are refused on this thread only: the stages run
-            # under any regulator, and a process group's watchdog thread
-            # may query its events meanwhile
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = self.constants.step(*inputs, k, True)
-        self.key, self.graph = key, graph
-        self.inputs, self.outputs = inputs, outputs
-        count("loop.capture")
-        return out
-
-
 class StageKernel:
     """``Stages.step`` and ``Stages.observe`` for the CSTR plant on a CUDA
     device, each one launch of K13 (``ops.stages_cuda.loop_stages``),
@@ -344,33 +277,30 @@ class StageKernel:
                                            rsp, stages_cuda.STEP_OBSERVE)
 
 
-# the loop's stages on a CUDA device: K13 for the CSTR, a graph (one key at
-# a time) for any other plant
+# the CSTR loop's stages on a CUDA device
 _KERNEL = StageKernel()
-_GRAPH = StageGraph()
 
 
 def _runner(plant: Plant, device):
-    """What runs the loop's stages on `device`, one launch a step: on a CUDA
-    device K13 (``_KERNEL``) for the CSTR plant, whose right-hand side and
-    Jacobian K13 computes itself (``plant.ode`` and ``plant.jacobian`` are
-    ``plants.cstr``'s, by identity), and the stage graph (``_GRAPH``) for
-    any other plant; None elsewhere, where the stages run uncaptured."""
-    if device.type != "cuda":
-        return None
-    if plant.ode is cstr_ode and plant.jacobian is cstr_jacobian:
+    """What runs the loop's stages on `device` in one launch a step: K13
+    (``_KERNEL``) on a CUDA device for the CSTR plant, whose right-hand
+    side and Jacobian K13 computes itself (``plant.ode`` and
+    ``plant.jacobian`` are ``plants.cstr``'s, by identity); None for any
+    other plant or device, where the stages run uncaptured."""
+    if (device.type == "cuda" and plant.ode is cstr_ode
+            and plant.jacobian is cstr_jacobian):
         return _KERNEL
-    return _GRAPH
+    return None
 
 
 def _closed_loop(model, plant, p_seq, dt, N, device, regulator,
                  regulator_state, horizon, rsp):
     """The step loop of `simulate` over states [*lead, n], with p_seq
-    [*lead, N, np].  On a CUDA device the stages of every step take one
-    launch, K13 for the CSTR plant (``StageKernel``), a CUDA graph for
-    any other (``StageGraph``), their constants kept on the device
-    between episodes; elsewhere they run uncaptured, their constants
-    built for the call."""
+    [*lead, N, np].  On a CUDA device the stages of every step of the
+    CSTR plant take one launch of K13 (``StageKernel``), its constants
+    kept on the device between episodes; any other plant, and any plant
+    elsewhere, runs them uncaptured, their constants built for the
+    call."""
     device = resolve_device(device)
     horizon = N // 10 if horizon is None else horizon
     if regulator is None:

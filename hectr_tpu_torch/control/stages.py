@@ -17,8 +17,8 @@ The per-step updates take one state vector [n] or a batch of them
 ``utils.rows.matvec`` on the CPU, so each row of a batch equals its
 unbatched update bit for bit there, and through elementwise products
 and a sum on the card (``apply``), so the stages call no cuBLAS routine
-there: the closed loop captures them into a CUDA graph, and a cuBLAS
-call in a capture takes a workspace of the capture stream's own.
+there and sum in the order K13 (``ops.stages_cuda``) follows: they are
+the card's plain counterpart of K13.
 
 Deviation (documented): reference `ctr_measure` indexes x[i] instead of
 x[j] (src/ctr.c:163), i.e. y_i = (sum_j C_ij) * x_i -- benign in all its

@@ -42,18 +42,15 @@ import functools
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import launch_on, load, raise_on
 from hectr_tpu_torch.ops.rns_cuda import merge
 
 MAX_BATCH_DIMS = 4          # merged leading dimensions the kernels take
 MAX_UNEMBED_WIDTH = 128     # 2s of K12's unembedding: one block a batch row
 
-LAUNCHES = {"encode_residues": 0, "crt_decode": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.register({"encode_residues": 0, "crt_decode": 0})
+reset_launches = launches.resetter(LAUNCHES)
 
 
 @functools.lru_cache(maxsize=1)

@@ -40,19 +40,17 @@ import math
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import load, raise_on
 
 MAX_GROUP = 4            # rows of one conversion group (the kernel's A)
 MAX_LEAD_TILES = 65535   # K7's grid rows: tiles of 8 leading rows
 
-LAUNCHES = {"base_convert": 0, "key_inner_product": 0, "mod_down_tail": 0}
-LAUNCH_SHAPES: collections.Counter = collections.Counter()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCH_SHAPES.clear()
+LAUNCHES = launches.register({"base_convert": 0, "key_inner_product": 0,
+                               "mod_down_tail": 0})
+LAUNCH_SHAPES: collections.Counter = launches.register(
+    collections.Counter())
+reset_launches = launches.resetter(LAUNCHES, LAUNCH_SHAPES)
 
 
 @functools.lru_cache(maxsize=1)

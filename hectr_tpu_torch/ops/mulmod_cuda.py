@@ -18,14 +18,11 @@ import functools
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import load, raise_on
 
-LAUNCHES = {"mulmod_chain": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.register({"mulmod_chain": 0})
+reset_launches = launches.resetter(LAUNCHES)
 
 
 @functools.lru_cache(maxsize=1)

@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import load, raise_on
 
 MAX_LOGN = 15            # the kernels' row sizes: N = 2^1 .. 2^15
@@ -47,14 +48,10 @@ H100_SMS = 132
 MIN_SLICE_LOG = 8        # a CTA of a cluster holds at least 2^8 elements
 MAX_SLICE_LOG = 14       # ... and at most 2^14 (64 KB), so two share an SM
 
-LAUNCHES = {"ntt": 0, "intt": 0}
-LAUNCH_SHAPES: collections.Counter = collections.Counter()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCH_SHAPES.clear()
+LAUNCHES = launches.register({"ntt": 0, "intt": 0})
+LAUNCH_SHAPES: collections.Counter = launches.register(
+    collections.Counter())
+reset_launches = launches.resetter(LAUNCHES, LAUNCH_SHAPES)
 
 
 def pass_widths(logn: int) -> tuple[int, ...]:

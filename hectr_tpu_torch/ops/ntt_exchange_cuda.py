@@ -35,18 +35,15 @@ import functools
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import load, raise_on
 
 MAX_LOG_SHARDS = 3       # D = 2 .. 8 in the local form
 
-LAUNCHES = {"exchange_fwd": 0, "exchange_inv": 0}
-LAUNCH_SHAPES: collections.Counter = collections.Counter()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCH_SHAPES.clear()
+LAUNCHES = launches.register({"exchange_fwd": 0, "exchange_inv": 0})
+LAUNCH_SHAPES: collections.Counter = launches.register(
+    collections.Counter())
+reset_launches = launches.resetter(LAUNCHES, LAUNCH_SHAPES)
 
 
 @functools.lru_cache(maxsize=1)

@@ -48,6 +48,7 @@ import math
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import launch_on, load, raise_on
 
 MAX_DIMS = 6          # merged dimensions the kernels take
@@ -66,14 +67,10 @@ OPS = {
 # how many of a primitive's trailing operands are per-row constants
 CONSTANTS = {op: 3 if op in ("mul_mod", "mul_add_mod") else 1 for op in OPS}
 
-LAUNCHES = {"rns_map": 0, "mod_product_sum": 0}
-OP_LAUNCHES: collections.Counter = collections.Counter()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    OP_LAUNCHES.clear()
+LAUNCHES = launches.register({"rns_map": 0, "mod_product_sum": 0})
+OP_LAUNCHES: collections.Counter = launches.register(
+    collections.Counter())
+reset_launches = launches.resetter(LAUNCHES, OP_LAUNCHES)
 
 
 @functools.lru_cache(maxsize=1)

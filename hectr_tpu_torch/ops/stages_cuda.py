@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.ops.build import launch_on, load, raise_on
 
 NX, NU, NP = 3, 2, 1        # the CSTR's states, moves and disturbance
@@ -49,12 +50,8 @@ PLANT = ("S", "inv_S", "heat", "cool", "K0", "E", "neg_E", "C0", "T0")
 WORDS = 112
 STEP, STEP_OBSERVE, OBSERVE = 0, 1, 2   # the kernel's modes
 
-LAUNCHES = {"loop_stages": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+LAUNCHES = launches.register({"loop_stages": 0})
+reset_launches = launches.resetter(LAUNCHES)
 
 
 @functools.lru_cache(maxsize=1)

@@ -280,6 +280,26 @@ def is_device_op(evt) -> bool:
             and not evt.key.startswith((PREFIX, "ProfilerStep")))
 
 
+def device_us(evt) -> float:
+    """An event's (or ``key_averages()`` row's) own device time in us,
+    across torch versions."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def device_ops(averages) -> tuple[collections.Counter, collections.Counter]:
+    """(device us, launches) by key of the device operations
+    (``is_device_op``) among ``prof.key_averages()`` rows."""
+    us, launches = collections.Counter(), collections.Counter()
+    for evt in averages:
+        if is_device_op(evt):
+            us[evt.key] += device_us(evt)
+            launches[evt.key] += evt.count
+    return us, launches
+
+
 def _union(intervals) -> list[list[float]]:
     out: list[list[float]] = []
     for start, end in sorted(intervals):

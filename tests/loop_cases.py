@@ -71,13 +71,14 @@ def shifted_setup():
 
 def wrapped_ode(x, u, p):
     """The CSTR's right-hand side behind another function: a plant that
-    K13 does not take, whose stages the card runs as a CUDA graph."""
+    K13 does not take, whose stages the card runs uncaptured."""
     return cstr.cstr_ode(x, u, p)
 
 
-def graph_setup():
+def other_plant_setup():
     """The CSTR setup with its right-hand side wrapped (``wrapped_ode``):
-    on the card its stages take ``StageGraph``."""
+    a plant K13 does not take, so its stages run uncaptured on the card
+    too."""
     model, plant = cli.cstr_setup()
     return model, sim.Plant(ode=wrapped_ode, jacobian=plant.jacobian,
                             xs=plant.xs, us=plant.us, ps=plant.ps)

@@ -1,17 +1,20 @@
 """The CSTR closed loop's own stages as one launch of K13 a step
-(``ops.stages_cuda``, ``control.simulate`` ``StageKernel``).
+(``ops.stages_cuda``, ``control.simulate`` ``StageKernel``), and the
+stiff step's solves, K13's plain counterpart on the card.
 
-On the CPU: which path the loop's stages take (K13 for the CSTR plant on
-a card, the stage graph for any other plant there, the plain stages on
-the CPU); the constant buffer's packing against the ``Stages``' tensors;
-the wrapper's refusals of what K13 does not take; and the kernel path's
-counts, packing and outputs with a stand-in for the launch, bit-equal to
-the uncaptured loop.  On the card (marked ``cuda``; they skip
-elsewhere): K13 against the uncaptured stages at one plant, 4 and 1,024,
-every mode; whole episodes through K13 against the uncaptured card loop
-with the plaintext and the encrypted regulator, one launch a step; and a
-plant K13 does not take still through the stage graph.  The file imports
-neither jax nor the JAX package, so it runs where the card is:
+On the CPU: ``stiff_step``'s LAPACK solve without its check bit-equal to
+``torch.linalg.solve``; the card's pivoted solve against LAPACK; which
+path the loop's stages take (K13 for the CSTR plant on a card, the plain
+stages for any other plant and on the CPU); the CPU loop uncaptured,
+counting nothing; the constant buffer's packing against the ``Stages``'
+tensors; the wrapper's refusals of what K13 does not take; and the
+kernel path's counts, packing and outputs with a stand-in for the
+launch, bit-equal to the uncaptured loop.  On the card (marked ``cuda``;
+they skip elsewhere): K13 against the uncaptured stages at one plant, 4
+and 1,024, every mode; whole episodes through K13 against the
+uncaptured card loop with the plaintext and the encrypted regulator, one
+launch a step; and a plant K13 does not take run uncaptured.  The file
+imports neither jax nor the JAX package, so it runs where the card is:
 
     python -m pytest tests/test_torch_loop_kernel.py --noconftest -o addopts="" -q
 """
@@ -24,17 +27,79 @@ import torch
 
 from hectr_tpu_torch import cli
 from hectr_tpu_torch.bench import stages_kernels as SK
+from hectr_tpu_torch.control import ode
 from hectr_tpu_torch.control import simulate as sim
 from hectr_tpu_torch.control.plants import cstr
 from hectr_tpu_torch.control.stages import actuate
 from hectr_tpu_torch.ops import stages_cuda as K
 from hectr_tpu_torch.utils import pmu
 from loop_cases import (CPU, assert_bit_equal, card,  # noqa: F401
-                        disturbances, episodes, graph_setup, loop_counts,
-                        regulator_and_sampler, secure, shifted_setup,
-                        wrapped_ode)
+                        disturbances, episodes, loop_counts,
+                        other_plant_setup, regulator_and_sampler, secure,
+                        shifted_setup, wrapped_ode)
 
 CUDA = torch.device("cuda", 0)
+
+
+# ---- the stiff step's solves ------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [(), (5,)])
+def test_stiff_step_bit_equal_checked_solve_on_the_cpu(batch):
+    """``stiff_step`` solves with ``torch.linalg.solve_ex`` (no status
+    check) on the CPU: bit-equal to the checked ``torch.linalg.solve``,
+    for one state and a batch."""
+    rng = np.random.default_rng(3)
+    xs = cstr.CSTR_STEADY_STATE["xs"]
+    x = torch.from_numpy(xs * rng.uniform(0.9, 1.1, (*batch, 3)))
+    u = torch.from_numpy(np.array([290.0, 0.1]) * rng.uniform(0.9, 1.1,
+                                                              (*batch, 2)))
+    p = torch.from_numpy(rng.uniform(0.05, 0.15, (*batch, 1)))
+    dt = 0.5
+    A = torch.eye(3, dtype=torch.float64) - dt * cstr.cstr_jacobian(x, u, p)
+    want = x + dt * torch.linalg.solve(A, cstr.cstr_ode(x, u, p))
+    got = ode.stiff_step(cstr.cstr_ode, cstr.cstr_jacobian, x, u, p, dt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+def test_pivoted_solve_against_lapack(n):
+    """``solve_pivoted`` (the card's solve) on CPU tensors: one system
+    and a batch, the CSTR's own systems, and systems whose leading entry
+    is zero or tiny (which need the row swaps), within 1e-12 of LAPACK
+    relative to the solution."""
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(64, n, n))
+    if n > 1:
+        A[:16, 0, 0] = 0.0
+        A[16:32, 0, 0] = 1e-14
+        A[32:48] = np.eye(n)[::-1] + 1e-3 * A[32:48]  # anti-diagonal
+    A, b = torch.from_numpy(A), torch.from_numpy(rng.normal(size=(64, n)))
+    want = torch.linalg.solve(A, b)
+    got = ode.solve_pivoted(A, b)
+    assert got.shape == want.shape
+    scale = want.abs().amax(-1, keepdim=True)
+    assert ((got - want).abs() / scale).max() < 1e-12
+    one = ode.solve_pivoted(A[0], b[0])
+    assert one.shape == (n,)
+    assert ((one - want[0]).abs().max() / scale[0]) < 1e-12
+
+
+def test_pivoted_solve_of_the_plants_systems():
+    """The stiff step's systems (I - dt J) at states around the CSTR's
+    steady state: ``solve_pivoted`` within 1e-14 of LAPACK."""
+    rng = np.random.default_rng(5)
+    xs = cstr.CSTR_STEADY_STATE["xs"]
+    x = torch.from_numpy(xs * rng.uniform(0.8, 1.2, (256, 3)))
+    u = torch.from_numpy(np.array([290.0, 0.1]) * rng.uniform(0.8, 1.2,
+                                                              (256, 2)))
+    p = torch.from_numpy(rng.uniform(0.05, 0.15, (256, 1)))
+    A = torch.eye(3, dtype=torch.float64) - 0.5 * cstr.cstr_jacobian(x, u, p)
+    b = cstr.cstr_ode(x, u, p)
+    want = torch.linalg.solve(A, b)
+    err = (ode.solve_pivoted(A, b) - want).abs() / want.abs().amax(
+        -1, keepdim=True)
+    assert err.max() < 1e-14
 
 
 # ---- which path the stages take --------------------------------------------
@@ -46,14 +111,14 @@ def wrapped_jacobian(x, u, p):
 
 @pytest.mark.parametrize("plant, device, path", [
     ("cstr", CUDA, "kernel"),
-    ("wrapped ode", CUDA, "graph"),
-    ("wrapped jacobian", CUDA, "graph"),
+    ("wrapped ode", CUDA, "plain"),
+    ("wrapped jacobian", CUDA, "plain"),
     ("cstr", CPU, "plain"),
 ])
 def test_stages_path_by_plant_identity_and_device(plant, device, path):
     """On a card, the CSTR plant (its right-hand side and Jacobian by
-    identity) takes K13 and any other plant the stage graph; on the CPU
-    the stages run plain.  Nothing is built to decide it."""
+    identity) takes K13 and any other plant runs the plain stages, as
+    the CPU does.  Nothing is built to decide it."""
     _, p = cli.cstr_setup()
     if plant == "wrapped ode":
         p = sim.Plant(ode=wrapped_ode, jacobian=p.jacobian, xs=p.xs,
@@ -62,8 +127,22 @@ def test_stages_path_by_plant_identity_and_device(plant, device, path):
         p = sim.Plant(ode=p.ode, jacobian=wrapped_jacobian, xs=p.xs,
                       us=p.us, ps=p.ps)
     runner = sim._runner(p, device)
-    assert runner is {"kernel": sim._KERNEL, "graph": sim._GRAPH,
-                      "plain": None}[path]
+    assert runner is {"kernel": sim._KERNEL, "plain": None}[path]
+
+
+def test_cpu_loop_stays_uncaptured_and_counts_nothing(monkeypatch):
+    """On the CPU no graph is made, K13 is not packed for and nothing is
+    counted; the loop's kernel holder is left as it was."""
+    def no_graph(*args, **kwargs):
+        raise AssertionError("a CUDA graph on the CPU path")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
+    monkeypatch.setattr(sim, "_KERNEL", sim.StageKernel())
+    pmu.reset_counts()
+    episodes(disturbances(2, 3), CPU)
+    episodes(disturbances(1, 3, (2,)), CPU)
+    assert dict(pmu.COUNTS) == {}
+    assert sim._KERNEL.constants is None
 
 
 # ---- the constant buffer ----------------------------------------------------
@@ -361,15 +440,19 @@ def test_kernel_episodes_against_the_uncaptured_card_loop(card, request,
 
 
 @pytest.mark.cuda
-def test_a_plant_k13_does_not_take_keeps_the_stage_graph(card, monkeypatch):
+def test_a_plant_k13_does_not_take_runs_uncaptured(card, monkeypatch):
     """The CSTR with its right-hand side wrapped, five steps: on the card
-    its stages run once uncaptured, are captured, then replayed four
-    times, and K13 never launches."""
-    monkeypatch.setattr(sim, "_GRAPH", sim.StageGraph())
+    its stages run uncaptured, bit-equal to the CSTR's own stages run
+    uncaptured there; K13 never launches and nothing is counted."""
+    monkeypatch.setattr(sim, "_KERNEL", sim.StageKernel())
     pmu.reset_counts()
     before = K.LAUNCHES["loop_stages"]
-    episodes(disturbances(1, 5), card, setup=graph_setup)
-    assert loop_counts() == {"loop.uncaptured": 1, "loop.capture": 1,
-                             "loop.replay": 4}
+    got = episodes(disturbances(1, 5), card, setup=other_plant_setup)
+    assert loop_counts() == {}
     assert K.LAUNCHES["loop_stages"] == before
+    assert sim._KERNEL.constants is None
+    with monkeypatch.context() as m:
+        m.setattr(sim, "_runner", lambda plant, device: None)
+        want = episodes(disturbances(1, 5), card)
+    assert_bit_equal(got, want)
     pmu.reset_counts()

@@ -186,13 +186,21 @@ def test_kernel_filters_drop_the_ranges_device_mirrors():
             _row("base_convert_kernel", 2, 10.0),
             _row("hectr.scheme.encrypt", 4, 400.0, annotation=True),
             _row("hectr.loop.regulator", 1, 900.0),
-            _row("aten::add", 3, 0.0, device="DeviceType.CPU")]
-    assert BB.kernel_totals(rows) == {"kernel_launches": 6,
-                                      "device_ms": pytest.approx(0.05)}
+            _row("aten::add", 3, 0.0, device="DeviceType.CPU"),
+            _row("ntt_fwd_kernel", 2, 0.0)]
+    # an older torch names a row's device time self_cuda_time_total
+    del rows[-1].self_device_time_total
+    rows[-1].self_cuda_time_total = 20.0
+    assert pmu.device_us(rows[-1]) == 20.0
+    us, launches = pmu.device_ops(rows)
+    assert us == {"ntt_fwd_kernel": 60.0, "base_convert_kernel": 10.0}
+    assert launches == {"ntt_fwd_kernel": 6, "base_convert_kernel": 2}
+    assert BB.kernel_totals(rows) == {"kernel_launches": 8,
+                                      "device_ms": pytest.approx(0.07)}
     got = PS.by_kernel(rows, steps=2)
-    assert got["kernel_launches_per_step"] == 3
-    assert got["device_ms_per_step"] == pytest.approx(0.025)
-    assert got["ntt_share"] == pytest.approx(0.8)
+    assert got["kernel_launches_per_step"] == 4
+    assert got["device_ms_per_step"] == pytest.approx(0.035)
+    assert got["ntt_share"] == pytest.approx(6 / 7)
     assert [k for k, *_ in got["top_ms_per_step"]] == ["ntt_fwd_kernel",
                                                        "base_convert_kernel"]
 

@@ -26,21 +26,13 @@ from hectr_tpu_torch.ckks import scheme as S
 from hectr_tpu_torch.ckks.gemv import bsgs_rotations
 from hectr_tpu_torch.control.simulate import simulate, simulate_batch
 from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
-from hectr_tpu_torch.ops import (codec_cuda, keyswitch_cuda, launches,
-                                 mulmod_cuda, ntt_cuda, ntt_exchange_cuda,
-                                 rns_cuda, stages_cuda)
+from hectr_tpu_torch.ops import launches, ntt_cuda, rns_cuda
 from hectr_tpu_torch.utils import pmu
 
 CPU = torch.device("cpu")
 HORIZON = 4
 SMALL = cfg.CKKSPreset(name="graph-test", logn=10, slots=16, scale_bits=50,
                        limb_bits=25, mult_depth=1)
-
-
-def reset_all_launches():
-    for mod in (ntt_cuda, ntt_exchange_cuda, keyswitch_cuda, rns_cuda,
-                codec_cuda, mulmod_cuda, stages_cuda):
-        mod.reset_launches()
 
 
 def counted() -> list[dict]:
@@ -69,8 +61,8 @@ def episodes(reg, sampler, p, device):
 
 
 def regulator_counts() -> dict:
-    """``pmu.COUNTS``' regulator keys (the loop counts its stage graph's
-    own on the card)."""
+    """``pmu.COUNTS``' regulator keys (the loop counts its own K13
+    launches on the card)."""
     return {k: v for k, v in pmu.COUNTS.items() if k.startswith("regulator.")}
 
 
@@ -96,7 +88,7 @@ def test_replayed_counts_a_capture_once_per_replay():
     """A capture leaves every counter as it found it (no zero entries
     added); each replay adds what the capture counted, and still does
     after reset_launches."""
-    reset_all_launches()
+    launches.reset()
     ntt_cuda.LAUNCHES["ntt"] += 5
     ntt_cuda.LAUNCH_SHAPES["ntt", (3, 8)] += 5
     before = counted()
@@ -121,12 +113,12 @@ def test_replayed_counts_a_capture_once_per_replay():
     assert dict(ntt_cuda.LAUNCH_SHAPES) == {("ntt", (3, 8)): 2,
                                             ("intt", (2, 8)): 1}
     assert dict(rns_cuda.OP_LAUNCHES) == {"add_mod": 4}
-    reset_all_launches()
+    launches.reset()
 
 
 def test_a_failed_capture_leaves_the_counters():
     """A capture that raises leaves the counters as they were."""
-    reset_all_launches()
+    launches.reset()
     rep = launches.Replayed()
     with pytest.raises(RuntimeError):
         with rep.capture():
@@ -299,11 +291,11 @@ def replayed_against_uncaptured(reg, p, device, seed=3):
     """Episodes through the closure (graph) and through its uncaptured
     step, each from TorchSampler(seed): (graph runs, uncaptured runs,
     the counts of the graph runs, the launch counters after each)."""
-    reset_all_launches()
+    launches.reset()
     want = episodes(reg.uncaptured, S.TorchSampler(seed, device), p, device)
     torch.cuda.synchronize()
     want_launches = counted()
-    reset_all_launches()
+    launches.reset()
     pmu.reset_counts()
     got = episodes(reg, S.TorchSampler(seed, device), p, device)
     torch.cuda.synchronize()
