@@ -39,7 +39,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      uncaptured stages in each of its modes (step, step with the next
      observation, observation), timed in the second beside its bound, the
      uncaptured stages and their CUDA graph, with the host's us a step
-     through the loop's K13 holder (hectr_tpu_torch.bench.stages_kernels)
+     through the loop's K13 holder (hectr_tpu_torch.bench.stages_kernels);
+     the encrypt kernel K14 bit-equal to the composition it replaces (three
+     torch.remainder, three K1, three K9, a stack) at one and 1,024
+     ciphertexts of the benchmark's ring and one of FLAGSHIP, timed beside
+     its bound and the composition (hectr_tpu_torch.bench.encrypt_kernels)
   3. the REFERENCE_HEMPC encrypted CSTR loop (40 steps, every rotation
      key) through the CLI's functions: <= 5e-10 per channel against the
      plaintext twin, canary < 1e-5, golden cstr-hempc.bin to 1e-6
@@ -278,6 +282,7 @@ def phase_kernels(device, kernel_rows):
     rns_kernels(device, kernel_rows)
     codec_kernels(device, kernel_rows)
     stages_kernels(kernel_rows)
+    encrypt_kernels(kernel_rows)
 
 
 def keyswitch_kernels(device, kernel_rows):
@@ -392,6 +397,32 @@ def stages_kernels(kernel_rows):
                 max_abs_err=rec["max_gap"], ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                 bound_by=rec["bound_by"], library_ms=None)
+
+
+def encrypt_kernels(kernel_rows):
+    """K14 held bit-equal to the plain version (``scheme.encrypt_plain``:
+    the plain transform and primitives) and to the composition it replaces
+    at ``bench.encrypt_kernels``' cases (B 1 and 1,024 at the benchmark's
+    ring, FLAGSHIP), timed there beside its bound, the plain version and
+    the composition."""
+    from hectr_tpu_torch.bench import encrypt_kernels as EK
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    for rec in EK.measure(device):
+        print(f"[kernels] K14 encrypt ({rec['case']}: {rec['preset']}, "
+              f"batch {rec['batch']}, {rec['limbs']} limbs): bit-equal to "
+              f"the plain version and the composition; kernel "
+              f"{rec['ms']:.5f} ms in {rec['launches']} launch, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}) = "
+              f"{rec['share_of_bound']:.3f} of it; plain "
+              f"{rec['plain_ms']:.5f} ms; composition "
+              f"{rec['composed_ms']:.5f} ms in "
+              f"{rec['composed_launches']} launches", flush=True)
+        if rec["case"] == "B 1024":
+            kernel_rows["encrypt"].update(
+                max_abs_err=0, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                library_ms=None)
 
 
 # the launches a loop phase sums: K1/K2, the key-switch kernels K6-K8, the
@@ -1747,9 +1778,9 @@ def main() -> None:
 
     from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
-    from hectr_tpu_torch.ops import (build, codec_cuda, keyswitch_cuda,
-                                     mulmod_cuda, ntt_cuda, ntt_exchange_cuda,
-                                     rns_cuda, stages_cuda)
+    from hectr_tpu_torch.ops import (build, codec_cuda, encrypt_cuda,
+                                     keyswitch_cuda, mulmod_cuda, ntt_cuda,
+                                     ntt_exchange_cuda, rns_cuda, stages_cuda)
     from hectr_tpu_torch.utils import read_traj_bin
 
     from hectr_tpu_torch.utils.pmu import Timer
@@ -1757,7 +1788,8 @@ def main() -> None:
     timer = Timer()          # each phase's wall time, device synchronized
     with timer.section("build"):
         sources = ("ntt.cu", "mulmod_chain.cu", "ntt_exchange.cu",
-                   "keyswitch.cu", "rns_ops.cu", "codec.cu", "loop_stages.cu")
+                   "keyswitch.cu", "rns_ops.cu", "codec.cu", "loop_stages.cu",
+                   "encrypt.cu")
         libs = build.build(*sources)
         ntt_cuda.library()
         mulmod_cuda.library()
@@ -1766,6 +1798,7 @@ def main() -> None:
         rns_cuda.library()
         codec_cuda.library()
         stages_cuda.library()
+        encrypt_cuda.library()
     print(f"[build] nvcc sm_90a hectr_tpu_torch/csrc/{{{','.join(sources)}}} "
           f"(in parallel) -> {[lib.name for lib in libs]} "
           f"{timer.sections['build']:.2f} s", flush=True)
@@ -1816,6 +1849,10 @@ def main() -> None:
         "loop_stages": {"name": "loop_stages", "route": "cuda",
                         "source": "hectr_tpu_torch/csrc/loop_stages.cu",
                         "replaces": "hectr_tpu/control/simulate.py:171"},
+        # nor here: XLA fuses encryption's residues, NTTs and combination
+        "encrypt": {"name": "encrypt", "route": "cuda",
+                    "source": "hectr_tpu_torch/csrc/encrypt.cu",
+                    "replaces": "hectr_tpu/ckks/scheme.py:131"},
     }
     with timer.section("kernels"):
         phase_kernels(device, kernel_rows)
@@ -1875,7 +1912,8 @@ def main() -> None:
                   f"{kname} kernel never launched in the {label} phase")
     for kname in LOOP_KERNELS:
         kernel_rows[kname]["launches"] = sum(l[kname] for _, l in loops)
-    for kname in (*ntt_exchange_cuda.LAUNCHES, *stages_cuda.LAUNCHES):
+    for kname in (*ntt_exchange_cuda.LAUNCHES, *stages_cuda.LAUNCHES,
+                  *encrypt_cuda.LAUNCHES):
         kernel_rows[kname]["launches"] = sum(l.get(kname, 0)
                                              for _, l in loops)
         check(kernel_rows[kname]["launches"] > 0,

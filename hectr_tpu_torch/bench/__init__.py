@@ -87,6 +87,31 @@ def ntt_bound(rows: int, limbs: int, logn: int, mult_peak: float
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def encrypt_work(batch: int, limbs: int, logn: int) -> tuple[int, int]:
+    """(bytes, lazy multiplies) of one K14 launch (``ops.encrypt_cuda``)
+    over `batch` ciphertexts of `limbs` limbs at 2^logn, each input read
+    once (the three int64 draws of a batch row, the plaintext's rows, the
+    key's two rows a limb, the limbs' twiddle and companion tables and
+    primes) and the ciphertext's two rows a limb written once, against three
+    forward NTTs a row (N log2 N / 2 lazy multiplies each) and the two key
+    products an element (one multiply each)."""
+    n = 1 << logn
+    words = 3 * batch + batch * limbs + 2 * limbs + 2 * batch * limbs
+    nbytes = 8 * n * words + limbs * (n * 4 * 2 + 4)
+    mults = batch * limbs * (3 * logn * (n // 2) + 2 * n)
+    return nbytes, mults
+
+
+def encrypt_bound(batch: int, limbs: int, logn: int, mult_peak: float
+                  ) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one K14 launch over
+    ``encrypt_work``'s bytes and multiplies."""
+    nbytes, mults = encrypt_work(batch, limbs, logn)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mults / mult_peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def exchange_bound(rows: int, limbs: int, logn: int, D: int, form: str,
                    mult_peak: float) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") for one launch of the

@@ -33,7 +33,11 @@ cost.  The last recording and the first profiled window are reduced:
   * the same for the loop's stages (``control.simulate``): ``loop.*``
     counts, among them ``loop.kernel``, a step's K13 launch for the CSTR
     plant (``StageKernel``), and the device ms and launches a step under
-    ``loop.stages.kernel``, K13's launches.
+    ``loop.stages.kernel``, K13's launches;
+  * encryption over the loop's runs: K14's launches
+    (``ops.encrypt_cuda.LAUNCHES``, replays counted) and the card calls
+    that took the composition instead (``pmu.COUNTS``
+    ``scheme.encrypt.composed``), each also a step.
 
 Each loop keeps one encryption sampler over its runs, so its regulator
 captures once (in the first, warm run) and replays after; the CSTR
@@ -128,16 +132,23 @@ def profiled(run, steps: int, ranges: bool):
 def profile_loop(label: str, run, steps: int, window: int) -> dict:
     """run(n): n closed-loop steps of one loop (or batch of loops), ending
     in a synchronize.  Host clock, recording, profiled windows."""
+    from hectr_tpu_torch.ops import encrypt_cuda as EC
     from hectr_tpu_torch.ops import keyswitch_cuda as KC
 
     pmu.reset_counts()
+    EC.reset_launches()
+    ran = [0]
+
+    def counted(n: int) -> None:
+        run(n)
+        ran[0] += n
 
     def timed(n: int) -> float:
         t0 = time.perf_counter()
-        run(n)
+        counted(n)
         return (time.perf_counter() - t0) * 1e3 / n
 
-    run(steps)
+    counted(steps)
     # the host clock swings between turns: each reading several times, in
     # turns (plain, recorded, ...; profiled with ranges, muted, ...)
     clock = {"plain": [], "recorded": []}
@@ -145,15 +156,15 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
         clock["plain"].append(timed(steps))
         with pmu.recording() as rec:
             clock["recorded"].append(timed(steps))
-    run(window)
+    counted(window)
     KC.reset_launches()
-    prof, first = profiled(lambda: run(window), window, True)
+    prof, first = profiled(lambda: counted(window), window, True)
     shapes = dict(KC.LAUNCH_SHAPES)
     clock.update(ranges=[first], muted=[])
     for turn in range(2 * TURNS - 1):
         ranges = turn % 2 == 1
         clock["ranges" if ranges else "muted"].append(
-            profiled(lambda: run(window), window, ranges)[1])
+            profiled(lambda: counted(window), window, ranges)[1])
     kernels = by_kernel(prof.key_averages(), window)
     spans = pmu.by_span(prof.events(), window)
     roof = keyswitch_roofline(shapes, kernels["keyswitch_ms_per_step"]
@@ -167,6 +178,9 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
            "loop_counts": {k: v for k, v in pmu.COUNTS.items()
                            if k.startswith("loop.")},
            "loop_kernel": spans["by_span"].get("loop.stages.kernel"),
+           "encrypt_counts": {
+               "steps": ran[0], "k14_launches": EC.LAUNCHES["encrypt"],
+               "composed": pmu.COUNTS.get("scheme.encrypt.composed", 0)},
            "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
                                 for name, row in rec.table.items()}}
     _print(label, out, rec, steps)
@@ -199,6 +213,12 @@ def _print(label: str, out: dict, rec, steps: int) -> None:
     print(f"-- loop stages: {out['loop_counts']} (loop.kernel "
           f"{out['loop_counts'].get('loop.kernel', 0)}); under "
           f"loop.stages.kernel {out['loop_kernel']}", file=err)
+    e = out["encrypt_counts"]
+    print(f"-- encrypt: {e['k14_launches']} K14 launches "
+          f"({e['k14_launches'] / e['steps']:.3f} a step), "
+          f"{e['composed']} composed card calls "
+          f"({e['composed'] / e['steps']:.3f} a step), over "
+          f"{e['steps']} steps", file=err)
     r = out["keyswitch_roofline"]
     print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
           f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",

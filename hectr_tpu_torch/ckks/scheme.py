@@ -40,14 +40,17 @@ from hectr_tpu_torch.ckks.encoding import (
 )
 from hectr_tpu_torch.ckks.modmath import (
     add_mod,
+    add_mod_plain,
     mul_add_mod,
+    mul_add_mod_plain,
     mul_mod,
     neg_mod,
     sub_mod,
 )
-from hectr_tpu_torch.ckks.ntt import intt, ntt
+from hectr_tpu_torch.ckks.ntt import intt, ntt, ntt_plain
 from hectr_tpu_torch.config import resolve_device
-from hectr_tpu_torch.ops import codec_cuda
+from hectr_tpu_torch.ops import codec_cuda, encrypt_cuda
+from hectr_tpu_torch.utils import pmu
 from hectr_tpu_torch.utils.pmu import span
 
 SIGMA = 3.2  # RLWE noise standard deviation (standard CKKS choice)
@@ -177,18 +180,49 @@ def encrypt(ctx: CKKSContext, keys: KeySet, pt: Plaintext,
             sampler: Sampler) -> Ciphertext:
     """Public-key encryption: (v pk0 + e0 + m, v pk1 + e1).  A plaintext
     [..., k, N] gives a ciphertext [..., 2, k, N], each row from its own
-    draws of `sampler`."""
+    draws of `sampler`.  On the card one K14 launch
+    (``ops.encrypt_cuda``) for rings up to 2^15; larger rings there
+    (counted in ``pmu.COUNTS["scheme.encrypt.composed"]``) and the CPU
+    take ``encrypt_composed``."""
     k = pt.limbs
     device = pt.data.device
     t = ctx.tables(k, device)
-    v, e0, e1 = (ntt(signed_to_residues(x.to(device), t.p), t)
-                 for x in sampler.encryption(ctx, k, tuple(pt.data.shape[:-2]),
-                                             device))
-    pk0 = keys.pk[0, :k]
-    pk1 = keys.pk[1, :k]
-    c0 = add_mod(mul_add_mod(v, pk0, e0, t.p, t.mu, t.k), pt.data, t.p)
-    c1 = mul_add_mod(v, pk1, e1, t.p, t.mu, t.k)
-    return Ciphertext(data=torch.stack([c0, c1], dim=-3), scale=pt.scale)
+    v, e0, e1 = (x.to(device) for x in sampler.encryption(
+        ctx, k, tuple(pt.data.shape[:-2]), device))
+    if on_card(pt.data):
+        if t.n <= 1 << encrypt_cuda.MAX_LOGN:
+            return Ciphertext(data=encrypt_cuda.encrypt(v, e0, e1, pt.data,
+                                                        keys.pk, t),
+                              scale=pt.scale)
+        pmu.count("scheme.encrypt.composed")
+    return Ciphertext(data=encrypt_composed(t, keys.pk, pt.data, v, e0, e1),
+                      scale=pt.scale)
+
+
+def encrypt_composed(t, pk: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                     e0: torch.Tensor, e1: torch.Tensor) -> torch.Tensor:
+    """What K14 computes, op by op: the draws [..., N] to residues, their
+    NTTs, (v pk0 + e0 + m, v pk1 + e1) stacked [..., 2, k, N].  Each op
+    dispatches by device: on the card the NTT is K1 (or the sharded
+    transform above 2^15) and the sums K9; on the CPU it is
+    ``encrypt_plain``."""
+    return _encrypt_with(ntt, add_mod, mul_add_mod, t, pk, m, (v, e0, e1))
+
+
+def encrypt_plain(t, pk: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                  e0: torch.Tensor, e1: torch.Tensor) -> torch.Tensor:
+    """``encrypt_composed`` in plain PyTorch ops on any device (the plain
+    transform and primitives): what K14 is held to on the card."""
+    return _encrypt_with(ntt_plain, add_mod_plain, mul_add_mod_plain, t, pk,
+                         m, (v, e0, e1))
+
+
+def _encrypt_with(ntt_op, add_op, mul_add_op, t, pk, m, draws):
+    k = len(t.primes)
+    v, e0, e1 = (ntt_op(signed_to_residues(x, t.p), t) for x in draws)
+    c0 = add_op(mul_add_op(v, pk[0, :k], e0, t.p, t.mu, t.k), m, t.p)
+    c1 = mul_add_op(v, pk[1, :k], e1, t.p, t.mu, t.k)
+    return torch.stack([c0, c1], dim=-3)
 
 
 @span("scheme.decrypt")

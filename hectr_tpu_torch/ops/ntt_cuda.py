@@ -93,7 +93,7 @@ class Geometry:
         """Columns a thread takes in the pass that crosses CTAs (the
         forward's first, the inverse's last): two, for 16-byte device
         accesses, where the row has more than one pass and that pass is
-        at most FIRST_PASS_BITS wide (csrc/ntt.cu::first_columns)."""
+        at most FIRST_PASS_BITS wide (csrc/ntt_passes.cuh::first_columns)."""
         r0 = self.passes[0]
         return 2 if self.logn > r0 and r0 <= FIRST_PASS_BITS else 1
 

@@ -1119,9 +1119,9 @@ def test_one_regulator_step_launches_k9_and_k10(flagship_card):
     torch.cuda.synchronize()
     assert RC.LAUNCHES["mod_product_sum"] == 6
     assert RC.LAUNCHES["rns_map"] > 0
-    # encryptions and the decryption, the differences, the gemvs' rotated
-    # adds and sums, the negation (the rescales run through K6 and K8, the
-    # decode's CRT digits through K12)
+    # the decryption, the differences, the gemvs' rotated adds and sums,
+    # the negation (the encryptions run through K14, the rescales through
+    # K6 and K8, the decode's CRT digits through K12)
     assert set(RC.OP_LAUNCHES) == {"add_mod", "sub_mod", "neg_mod",
                                    "mul_add_mod"}, RC.OP_LAUNCHES
 

@@ -19,7 +19,8 @@ OWN = {"ntt_cuda": ("LAUNCHES", "LAUNCH_SHAPES"),
        "rns_cuda": ("LAUNCHES", "OP_LAUNCHES"),
        "codec_cuda": ("LAUNCHES",),
        "mulmod_cuda": ("LAUNCHES",),
-       "stages_cuda": ("LAUNCHES",)}
+       "stages_cuda": ("LAUNCHES",),
+       "encrypt_cuda": ("LAUNCHES", "LAUNCH_SHAPES")}
 
 
 def module(name: str):

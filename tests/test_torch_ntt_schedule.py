@@ -134,7 +134,7 @@ class Lazy:
 
 
 def ct_stages(x, idx, w, wsh, base, R, hb, ar, used):
-    """ntt.cu::ct_stages on lists of arrays x[v] (element v of each
+    """ntt_passes.cuh::ct_stages on lists of arrays x[v] (element v of each
     thread's column), idx[v] their row indices."""
     for S in range(R):
         half = 1 << (R - 1 - S)
@@ -150,7 +150,7 @@ def ct_stages(x, idx, w, wsh, base, R, hb, ar, used):
 
 
 def gs_stages(x, idx, w, wsh, base, R, lo, ar, used):
-    """ntt.cu::gs_stages, numbered as ct_stages."""
+    """ntt_passes.cuh::gs_stages, numbered as ct_stages."""
     for S in range(R):
         half = 1 << S
         for g in range(1 << (R - 1 - S)):

@@ -238,6 +238,34 @@ def test_encrypt_decrypt_bit_equal(pair, k):
     assert np.max(np.abs(re.numpy() - vre)) < 1e-6
 
 
+@pytest.mark.parametrize("k", [2, 6])
+def test_encrypt_k14_route_bit_equal_with_replayed_draws(pair, monkeypatch, k):
+    """``encrypt`` down K14's route (the CPU standing in for the card, the
+    launch for K14's floor-mod and arithmetic, ``encrypt_model``) with the
+    JAX package's draws: three ciphertexts in one launch, each row bit-equal
+    to the JAX package's encryption under its own key."""
+    from encrypt_model import kernel_model
+    from hectr_tpu_torch.ops import encrypt_cuda as EC
+
+    ctx, jctx, keys, jkeys = pair
+    vre, vim = _slots(30 + k)
+    jpt = jencode(jctx, vre, vim, k)
+    pt = interop.plaintext(jpt.data, jpt.scale, CPU)
+    enc_keys = list(jax.random.split(jax.random.PRNGKey(40 + k), 3))
+    jencrypt = jax.jit(lambda p, key: JS.encrypt(jctx, jkeys, p, key))
+    want = [np.asarray(jencrypt(jpt, key).data) for key in enc_keys]
+    monkeypatch.setattr(TS, "on_card", lambda x: True)
+    monkeypatch.setattr(EC, "_launch", kernel_model)
+    before = EC.LAUNCHES["encrypt"]
+    ct = TS.encrypt(ctx, keys, TS.Plaintext(pt.data.expand(3, -1, -1),
+                                            pt.scale),
+                    JaxReplay(enc_keys=enc_keys))
+    assert EC.LAUNCHES["encrypt"] == before + 1
+    assert ct.data.shape == (3, 2, k, ctx.n)
+    for row, w in zip(ct.data, want):
+        assert np.array_equal(u32(row), w)
+
+
 def test_torch_sampler_roundtrip_and_distribution():
     ctx, _ = contexts(PRESET)
     sampler = TS.TorchSampler(7, CPU)
