@@ -47,6 +47,10 @@ QP_BATCHES = (1, 4, 8, 16, 32)
 # scripts/run_flagship_qp_tpu.py: the du box, the QP, a 10-step loop
 QP_DUMIN, QP_DUMAX = (-0.25, -0.004), (0.25, 0.004)
 QP_ITERS, QP_DEGREE, QP_STEPS = 2, 7, 10
+# the benchmark configuration cstr-hempc-qp's clip envelope B0, fixed: it
+# certifies 40-step episodes of its traffic, inlet-flow steps of 0.5-1.5x
+# the published one (worst input certificate 8.73, at 1.5x)
+QP_INPUT_BOUND = 12.0
 PHASE_BATCHES = (1, 64)
 PHASE_REPS = 3
 CTCT_BATCH = 64
@@ -226,33 +230,39 @@ def closed_loop(model, plant, p, device, reg, state):
                     regulator_state=state, horizon=HORIZON, return_state=True)
 
 
-def qp_envelope(model, plant, p):
+def qp_envelope(model, plant, p, B0: float = 4.0, runs: int = 6):
     """The plaintext mirror's closed loop on the host over p ([steps, 1],
-    or [B, steps, 1] for B loops), the envelope B0 widened from 4 until
-    every loop's input certificate fits under it, as
-    scripts/run_flagship_qp_tpu.py does.  Returns (B0, certificate (per
-    loop), x, u)."""
+    or [B, steps, 1] for B loops), the envelope widened from `B0` until
+    every loop's input certificate fits under it: a finite certificate
+    above B0 takes B0 to its ceiling + 1, as
+    scripts/run_flagship_qp_tpu.py does; one that is not finite (the
+    clip evaluated outside its fit domain, the loop diverged) doubles
+    B0.  Raises a ValueError where `runs` runs never fit.  Returns (B0,
+    certificate (per loop), x, u)."""
     from hectr_tpu_torch.hempc.qp_enc import make_pgd_mirror_regulator
 
     cpu = torch.device("cpu")
-    B0 = 4.0
-    for _ in range(3):
+    for _ in range(runs):
         mirror = make_pgd_mirror_regulator(model, plant, HORIZON, qp_bounds(),
                                            cpu, iters=QP_ITERS,
                                            degree=QP_DEGREE, input_bound=B0)
         x, u, cert = closed_loop(model, plant, p, cpu, mirror, torch.zeros(
             p.shape[:-2], dtype=torch.float64))
-        if float(cert.max()) <= B0:
-            break
-        B0 = float(np.ceil(float(cert.max())) + 1.0)
-    return B0, cert.numpy(), x, u
+        worst = float(cert.max())
+        if worst <= B0:
+            return B0, cert.numpy(), x, u
+        B0 = float(np.ceil(worst) + 1.0) if np.isfinite(worst) else 2.0 * B0
+    raise ValueError(f"no clip envelope fits in {runs} runs: the last "
+                     f"certificate read {worst}")
 
 
-def qp_regulator(device, model, plant, B0: float):
+def qp_regulator(device, model, plant, B0: float, compact: bool = True):
     """The constrained regulator at FLAGSHIP_QP as
-    scripts/run_flagship_qp_tpu.py builds it: compact relinearisation
-    key, compact BSGS rotation keys, the du box, degree-7 2-iteration
-    encrypted QP fitted for the envelope B0."""
+    scripts/run_flagship_qp_tpu.py builds it: a relinearisation key and
+    BSGS rotation keys in the compact layout (with their Shoup
+    companions where not `compact`, as the benchmark's cstr-hempc-qp
+    keeps them), the du box, degree-7 2-iteration encrypted QP fitted
+    for the envelope B0."""
     from hectr_tpu_torch.ckks import scheme as S
     from hectr_tpu_torch.ckks.context import make_context
     from hectr_tpu_torch.ckks.gemv import bsgs_rotations
@@ -262,10 +272,11 @@ def qp_regulator(device, model, plant, B0: float):
 
     ctx = make_context(FLAGSHIP_QP)
     keys = S.keygen(ctx, S.TorchSampler(51, device), device)
-    relin = gen_relin_key(ctx, keys, S.TorchSampler(52, device), compact=True)
+    relin = gen_relin_key(ctx, keys, S.TorchSampler(52, device),
+                          compact=compact)
     rot_keys = gen_rotation_keys(ctx, keys, S.TorchSampler(53, device),
                                  rotations=bsgs_rotations(ctx.slots),
-                                 compact=True)
+                                 compact=compact)
     return make_hempc_regulator(ctx, keys, rot_keys, model, plant, HORIZON,
                                 bounds=qp_bounds(), relin_key=relin,
                                 qp_iters=QP_ITERS, qp_degree=QP_DEGREE,

@@ -1,8 +1,11 @@
 """Where a step's time goes, on the card, by the port's own spans: the
-benchmark's configuration first (preset ``reference-hempc-secure``, the
-CSTR closed loop, one plant and 1,024 plants in one regulator), then the
-FLAGSHIP reference-shaped and fused loops and the constrained
-FLAGSHIP_QP loop.
+benchmark's configuration ``cstr-hempc`` first (preset
+``reference-hempc-secure``, the CSTR closed loop, one plant and 1,024
+plants in one regulator), then the FLAGSHIP reference-shaped and fused
+loops, and the benchmark's constrained configuration ``cstr-hempc-qp``
+(preset FLAGSHIP_QP, its keys with their Shoup companions, the du box,
+the degree-7 2-iteration encrypted QP at its envelope
+``bench.batch.QP_INPUT_BOUND``, one plant).
 
     python -m hectr_tpu_torch.bench.profile_step
 
@@ -37,7 +40,17 @@ cost.  The last recording and the first profiled window are reduced:
   * encryption over the loop's runs: K14's launches
     (``ops.encrypt_cuda.LAUNCHES``, replays counted) and the card calls
     that took the composition instead (``pmu.COUNTS``
-    ``scheme.encrypt.composed``), each also a step.
+    ``scheme.encrypt.composed``), each also a step;
+  * the encrypted QP's work a step over the loop's runs
+    (``hempc.qp_enc.COUNTS``, replays counted: solves, clips, ct x ct
+    multiplies, relinearisations, rescales, levels) beside what the
+    depth ledger predicts (``qp_enc.pgd_counts``).
+
+The constrained loop also runs QP_WINDOW steps of its uncaptured step
+(the regulator closure's ``uncaptured``) under the profiler, where every
+span opens: device ms a step by innermost span, and by span with the
+spans nested in it (``qp.pgd``, ``qp.grad``, ``scheme.clip``,
+``scheme.mul_ct``, ``loop.regulator``): the QP's share of the step.
 
 Each loop keeps one encryption sampler over its runs, so its regulator
 captures once (in the first, warm run) and replays after; the CSTR
@@ -50,6 +63,8 @@ listening (``span_off_us``).
 
 from __future__ import annotations
 
+import bisect
+import collections
 import contextlib
 import json
 import sys
@@ -70,7 +85,11 @@ CODEC_KERNELS = ("encode_residues_kernel", "crt_decode_kernel",
                  "crt_unembed_kernel")
 STEPS = 40         # the loops' episodes
 WINDOW = 8         # profiled steps: a few whole steps, a short trace
-QP_WINDOW = 2      # profiled FLAGSHIP_QP steps (each some 1,100 launches)
+QP_WINDOW = 2      # profiled FLAGSHIP_QP steps (each some 850 launches)
+# spans whose device time the uncaptured QP step reports with their
+# nested spans' included
+QP_SPANS = ("loop.regulator", "qp.pgd", "qp.grad", "scheme.clip",
+            "scheme.mul_ct")
 SERVED = 1024      # plants of the benchmark's served cell
 TURNS = 3          # readings of each host-clock step time
 
@@ -115,6 +134,62 @@ def keyswitch_roofline(shapes, kernel_ms: float) -> dict:
             "launches": sum(shapes.values())}
 
 
+def inclusive_ms(events, names, steps: int) -> dict:
+    """Device ms a step, per span name in `names`, of the device
+    operations launched while a span of that name was open on the host
+    (the spans nested in it included; one name's spans do not nest)."""
+    op_us = collections.Counter()
+    for evt in events:
+        if pmu.is_device_op(evt):
+            op_us[evt.id] += evt.time_range.end - evt.time_range.start
+    cpu = [evt for evt in events
+           if str(getattr(evt, "device_type", "")).endswith("CPU")]
+    ranges = {name: sorted((e.time_range.start, e.time_range.end)
+                           for e in cpu if e.name == pmu.PREFIX + name)
+              for name in names}
+    starts = {name: [a for a, _ in r] for name, r in ranges.items()}
+    us = dict.fromkeys(names, 0.0)
+    for evt in cpu:
+        if not (evt.name.startswith("cu") and evt.id in op_us):
+            continue
+        t = evt.time_range.start
+        for name, r in ranges.items():
+            i = bisect.bisect_right(starts[name], t) - 1
+            if i >= 0 and r[i][1] >= t:
+                us[name] += op_us[evt.id]
+    return {name: v / 1e3 / steps for name, v in us.items()}
+
+
+def profile_uncaptured(label: str, run, window: int) -> dict:
+    """run(n): n closed-loop steps through a regulator's uncaptured step,
+    ending in a synchronize; one warm step, then `window` steps under
+    torch.profiler with every span open: device ms and launches a step,
+    by innermost span and by ``QP_SPANS`` with their nested spans."""
+    run(1)
+    prof, host_ms = profiled(lambda: run(window), window, True)
+    events = prof.events()
+    us, launches = pmu.device_ops(prof.key_averages())
+    out = {"host_ms_per_step": host_ms,
+           "device_ms_per_step": sum(us.values()) / 1e3 / window,
+           "kernel_launches_per_step": sum(launches.values()) / window,
+           "inclusive_ms_per_step": inclusive_ms(events, QP_SPANS, window),
+           **pmu.by_span(events, window)}
+    err = sys.stderr
+    print(f"== {label}, uncaptured: device {out['device_ms_per_step']:.4f} "
+          f"ms and {out['kernel_launches_per_step']:.2f} launches a step, "
+          f"host {host_ms:.4f} ms (profiled)", file=err)
+    for name, ms in out["inclusive_ms_per_step"].items():
+        print(f"{name:28s} {ms:9.4f} ms with its nested spans "
+              f"({ms / out['device_ms_per_step']:.3f} of the device step)",
+              file=err)
+    for name, row in sorted(out["by_span"].items(),
+                            key=lambda kv: -kv[1]["device_ms_per_step"]):
+        print(f"{name:28s} {row['device_ms_per_step']:9.4f} ms "
+              f"{row['launches_per_step']:8.2f} launches (innermost)",
+              file=err)
+    return out
+
+
 def profiled(run, steps: int, ranges: bool):
     """run() under torch.profiler (CPU and CUDA), the port's ranges open
     or muted: (the profile, host ms a step)."""
@@ -132,11 +207,13 @@ def profiled(run, steps: int, ranges: bool):
 def profile_loop(label: str, run, steps: int, window: int) -> dict:
     """run(n): n closed-loop steps of one loop (or batch of loops), ending
     in a synchronize.  Host clock, recording, profiled windows."""
+    from hectr_tpu_torch.hempc import qp_enc
     from hectr_tpu_torch.ops import encrypt_cuda as EC
     from hectr_tpu_torch.ops import keyswitch_cuda as KC
 
     pmu.reset_counts()
     EC.reset_launches()
+    qp_enc.COUNTS.clear()
     ran = [0]
 
     def counted(n: int) -> None:
@@ -181,6 +258,8 @@ def profile_loop(label: str, run, steps: int, window: int) -> dict:
            "encrypt_counts": {
                "steps": ran[0], "k14_launches": EC.LAUNCHES["encrypt"],
                "composed": pmu.COUNTS.get("scheme.encrypt.composed", 0)},
+           "qp_counts": {k: v / ran[0]
+                         for k, v in sorted(qp_enc.COUNTS.items())},
            "host_ms_per_step": {name: {k: v / steps for k, v in row.items()}
                                 for name, row in rec.table.items()}}
     _print(label, out, rec, steps)
@@ -219,6 +298,8 @@ def _print(label: str, out: dict, rec, steps: int) -> None:
           f"{e['composed']} composed card calls "
           f"({e['composed'] / e['steps']:.3f} a step), over "
           f"{e['steps']} steps", file=err)
+    if out["qp_counts"]:
+        print(f"-- encrypted QP a step: {out['qp_counts']}", file=err)
     r = out["keyswitch_roofline"]
     print(f"-- K6-K8: {r['launches']} launches, least {r['least_ms']:.4f} ms, "
           f"device {r['device_ms']:.4f} ms, roofline {r['roofline']}",
@@ -256,7 +337,8 @@ def main() -> None:
     from hectr_tpu_torch.ckks.scheme import TorchSampler
     from hectr_tpu_torch.config import FLAGSHIP, REFERENCE_HEMPC_SECURE
     from hectr_tpu_torch.control.simulate import simulate, simulate_batch
-    from hectr_tpu_torch.hempc import hempc_init_state, make_hempc_regulator
+    from hectr_tpu_torch.hempc import (hempc_init_state, make_hempc_regulator,
+                                       qp_enc)
     from hectr_tpu_torch.hempc.fused import (make_fused_materials,
                                              make_fused_regulator)
 
@@ -311,17 +393,28 @@ def main() -> None:
     del regs, keys, rot_keys
     torch.cuda.empty_cache()
 
-    p_seq = BB.qp_disturbance(plant)
-    B0 = BB.qp_envelope(model, plant, p_seq)[0]
-    reg = BB.qp_regulator(device, model, plant, B0)
+    # the configuration's envelope, certified on this episode (raises if not)
+    p_seq = cli.disturbance(STEPS)
+    B0, cert, _, _ = BB.qp_envelope(model, plant, p_seq, BB.QP_INPUT_BOUND,
+                                    runs=1)
+    reg = BB.qp_regulator(device, model, plant, B0, compact=False)
     sampler = TorchSampler(54, device)
 
-    def qp(steps):
-        BB.closed_loop(model, plant, p_seq[:steps], device, reg,
-                       hempc_init_state(sampler, device))
-        torch.cuda.synchronize()
-    out["flagship-qp"] = profile_loop("flagship-qp", qp, len(p_seq),
-                                      QP_WINDOW)
+    def qp(regulator):
+        def run(steps):
+            BB.closed_loop(model, plant, p_seq[:steps], device, regulator,
+                           hempc_init_state(sampler, device))
+            torch.cuda.synchronize()
+        return run
+    label = "cstr-hempc-qp (FLAGSHIP_QP)"
+    predicted = qp_enc.pgd_counts(BB.QP_DEGREE, BB.QP_ITERS)
+    out["flagship-qp"] = profile_loop(label, qp(reg), STEPS, QP_WINDOW)
+    print(f"-- envelope {B0}, certificate {float(cert.max())}; the depth "
+          f"ledger's QP count a step {predicted}", file=sys.stderr)
+    out["flagship-qp"].update(
+        input_bound=B0, certificate=float(cert.max()),
+        qp_counts_predicted=predicted,
+        uncaptured=profile_uncaptured(label, qp(reg.uncaptured), QP_WINDOW))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "card": card_line(),
         "torch": torch.__version__, "steps": STEPS, "loops": out}))

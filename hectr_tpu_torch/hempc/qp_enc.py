@@ -17,8 +17,14 @@ evaluated entirely on CKKS ciphertexts:
     z = mid + hw * p((y - mid)/hw): a minimax (Lawson-iterated) degree
     3/5/7 fit of clamp(w,-1,1) on [-B, B], post-scaled so max|p| <= 1 on
     the fit domain, so the box holds by construction (up to CKKS noise).
-  * Degree-7 evaluation is a balanced power tree: 4 ct x ct mults, 4
-    rescale pairs.  Degree 3 costs 3 pairs.
+  * Degree-7 evaluation is a balanced power tree: 5 ct x ct mults (each
+    relinearised) and 6 rescales, 4 rescale pairs deep.  Degree 3: 2
+    mults, 3 rescales, 3 pairs deep.
+
+The solver counts its work in ``COUNTS`` (``pgd_counts`` gives what one
+solve adds) and opens the spans ``qp.pgd`` around a solve and ``qp.grad``
+around each iteration's eta H gemv, beside ``scheme.clip`` around each
+clip.
 
 Scales are scheduled exactly: every stage re-enters at the context
 scale Delta because its constants are encoded at the compensating
@@ -33,6 +39,7 @@ and returns a closure.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -43,8 +50,20 @@ from hectr_tpu_torch.ckks.context import CKKSContext
 from hectr_tpu_torch.ckks.gemv import gemv_apply, gemv_materials
 from hectr_tpu_torch.ckks.keyswitch import mul_ct
 from hectr_tpu_torch.ckks.scheme import Ciphertext, Plaintext, mod_down_to
+from hectr_tpu_torch.ops import launches
 from hectr_tpu_torch.utils.pmu import span
 from hectr_tpu_torch.utils.rows import matvec
+
+# The encrypted QP's work, counted on the host where it is issued:
+# ``solve`` (solves), ``clip`` (clip evaluations), ``ct_mult`` (ct x ct
+# multiplies), ``relin`` (relinearisations: key switches with the
+# relinearisation key, one a multiply here), ``rescale_pair`` (rescales,
+# each dividing by one prime pair, the gemvs' own among them) and
+# ``levels`` (rescale pairs of depth consumed: limbs in less limbs out,
+# over 2).  Registered with the launch counters, so each CUDA-graph
+# replay of a captured step adds what its capture counted
+# (``ops.launches.Replayed``).
+COUNTS: collections.Counter = launches.register(collections.Counter())
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,6 +206,34 @@ def pgd_limbs_required(degree: int, iters: int,
     return norm + C + iters * (2 + C)
 
 
+def pgd_counts(degree: int, iters: int,
+               input_kind: str = "w_scaled") -> dict[str, int]:
+    """What one encrypted solve adds to ``COUNTS``: iters + 1 clips, each
+    of 2 ct x ct multiplies and 3 rescales at degree 3, 5 and 6 at degree
+    7; one rescale a gradient gemv and one for the w-space normalization
+    of input_kind "du"; its depth is the ledger's, ``pgd_limbs_required``
+    / 2 rescale pairs."""
+    clips = iters + 1
+    mults, rescales = {3: (2, 3), 7: (5, 6)}[degree]
+    return {"solve": 1, "clip": clips, "ct_mult": clips * mults,
+            "relin": clips * mults,
+            "rescale_pair": (clips * rescales + iters
+                             + (input_kind == "du")),
+            "levels": pgd_limbs_required(degree, iters, input_kind) // 2}
+
+
+def _mul_ct(ctx: CKKSContext, a: Ciphertext, b: Ciphertext,
+            relin_key) -> Ciphertext:
+    COUNTS["ct_mult"] += 1
+    COUNTS["relin"] += 1
+    return mul_ct(ctx, a, b, relin_key)
+
+
+def _rescale(ctx: CKKSContext, a: Ciphertext) -> Ciphertext:
+    COUNTS["rescale_pair"] += 1
+    return S.rescale_pair(ctx, a)
+
+
 def _const_pt(ctx: CKKSContext, v: np.ndarray, k: int, scale,
               device) -> Plaintext:
     """Encode a real per-slot constant vector at (k limbs, scale)."""
@@ -242,18 +289,19 @@ def _clip_build(ctx: CKKSContext, lb: np.ndarray, ub: np.ndarray, k: int,
         @span("scheme.clip")
         def apply(w: Ciphertext, relin_key) -> Ciphertext:
             check(w)
-            t = S.rescale_pair(ctx, mul_ct(ctx, w, w, relin_key))
-            s3 = S.rescale_pair(ctx, S.mul_pt(ctx, t, pts["q3"]))
+            COUNTS["clip"] += 1
+            t = _rescale(ctx, _mul_ct(ctx, w, w, relin_key))
+            s3 = _rescale(ctx, S.mul_pt(ctx, t, pts["q3"]))
             s3 = S.add_pt(ctx, s3, pts["q1"])
-            z = S.rescale_pair(ctx, mul_ct(ctx, mod_down_to(ctx, w, k - 4),
-                                           s3, relin_key))
+            z = _rescale(ctx, _mul_ct(ctx, mod_down_to(ctx, w, k - 4),
+                                      s3, relin_key))
             return S.add_pt(ctx, z, pts["mid"])               # Delta, k-6
 
         return pts, apply
 
     if degree != 7:
         raise ValueError(f"encrypted clip of degree {degree}: 3 or 7 only")
-    # balanced power tree: 4 ct x ct mults, 4 rescale pairs
+    # balanced power tree: 5 ct x ct mults, 4 rescale pairs deep
     P1, P2, P3, P4 = (ctx.pair_scale(k - 2 * i) for i in range(4))
     s_y = delta**2 / P1                         # w2 = w^2     at k-2
     s_d3 = delta * s_y / P2                     # w3 = w*w2    at k-4
@@ -269,19 +317,20 @@ def _clip_build(ctx: CKKSContext, lb: np.ndarray, ub: np.ndarray, k: int,
     @span("scheme.clip")
     def apply(w: Ciphertext, relin_key) -> Ciphertext:
         check(w)
-        w2 = S.rescale_pair(ctx, mul_ct(ctx, w, w, relin_key))   # s_y, k-2
-        w3 = S.rescale_pair(ctx, mul_ct(ctx, mod_down_to(ctx, w, k - 2),
-                                        w2, relin_key))          # s_d3, k-4
-        w4 = S.rescale_pair(ctx, mul_ct(ctx, w2, w2, relin_key))  # s_d4
-        w5 = S.rescale_pair(ctx, mul_ct(ctx, w3, mod_down_to(ctx, w2, k - 4),
-                                        relin_key))              # s_d5, k-6
-        w7 = S.rescale_pair(ctx, mul_ct(ctx, w3, w4, relin_key))  # s_d7
+        COUNTS["clip"] += 1
+        w2 = _rescale(ctx, _mul_ct(ctx, w, w, relin_key))        # s_y, k-2
+        w3 = _rescale(ctx, _mul_ct(ctx, mod_down_to(ctx, w, k - 2),
+                                   w2, relin_key))               # s_d3, k-4
+        w4 = _rescale(ctx, _mul_ct(ctx, w2, w2, relin_key))       # s_d4
+        w5 = _rescale(ctx, _mul_ct(ctx, w3, mod_down_to(ctx, w2, k - 4),
+                                   relin_key))                   # s_d5, k-6
+        w7 = _rescale(ctx, _mul_ct(ctx, w3, w4, relin_key))       # s_d7
         acc = S.mul_pt(ctx, mod_down_to(ctx, w, k - 6), pts["q1"])
         acc = S.add(ctx, acc, S.mul_pt(ctx, mod_down_to(ctx, w3, k - 6),
                                        pts["q3"]))
         acc = S.add(ctx, acc, S.mul_pt(ctx, w5, pts["q5"]))
         acc = S.add(ctx, acc, S.mul_pt(ctx, w7, pts["q7"]))
-        z = S.rescale_pair(ctx, acc)                             # Delta, k-8
+        z = _rescale(ctx, acc)                                    # Delta, k-8
         return S.add_pt(ctx, z, pts["mid"])
 
     return pts, apply
@@ -358,15 +407,21 @@ def make_encrypted_pgd(ctx: CKKSContext, relin_key: torch.Tensor,
         stages.append((k, gm, clip_t))
         k -= 2 + C
 
+    @span("qp.pgd")
     def solve(du_in: Ciphertext) -> Ciphertext:
-        w = (S.rescale_pair(ctx, S.mul_pt(ctx, du_in, invhw))
+        COUNTS["solve"] += 1
+        w = (_rescale(ctx, S.mul_pt(ctx, du_in, invhw))
              if invhw is not None else du_in)
         w_unc = S.add_pt(ctx, w, negmid)
         z = clip0(w_unc, relin_key)
         for kc, gm, clip in stages:
-            g = gemv_apply(ctx, gm, S.sub(ctx, z, mod_down_to(ctx, w_unc, kc)))
+            with span("qp.grad"):
+                COUNTS["rescale_pair"] += 1          # the gemv's own
+                g = gemv_apply(ctx, gm,
+                               S.sub(ctx, z, mod_down_to(ctx, w_unc, kc)))
             y = S.sub(ctx, mod_down_to(ctx, z, kc - 2), g)
             z = clip(y, relin_key)
+        COUNTS["levels"] += (du_in.limbs - z.limbs) // 2
         return z
 
     return solve, eta

@@ -8,7 +8,10 @@ imported (``register``) and takes its ``reset_launches`` from
 ``resetter``; ``counters()``, ``by_kernel()`` and ``reset()`` reach
 every registered counter, so a kernel module is counted once it is
 imported, and one that is not imported launches nothing.  A dict of
-names is zeroed name by name, a Counter emptied.
+names is zeroed name by name, a Counter emptied.  A Counter of other
+work issued from the host (the encrypted QP's multiplies and rescales,
+``hempc.qp_enc.COUNTS``) registers here too, so that replays count it;
+``by_kernel`` leaves it out with the other Counters.
 
 A CUDA graph's capture runs the wrappers once, launching nothing; each
 replay launches what the capture recorded without running them.

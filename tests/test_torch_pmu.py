@@ -175,6 +175,35 @@ def test_by_span_on_a_synthetic_trace():
     assert got["window_ms_per_step"] == pytest.approx(250 * per)
 
 
+def test_inclusive_ms_counts_nested_spans_in_their_parents():
+    """``profile_step.inclusive_ms``: a span's device time takes every
+    operation launched while it was open, its nested spans' included;
+    the ranges' device mirrors are neither spans nor operations, and a
+    name that never opened reads 0."""
+    cuda = DeviceType.CUDA
+    events = [
+        _event(0, "hectr.qp.pgd", 0, 100),
+        _event(0, "hectr.scheme.clip", 5, 40),
+        _event(0, "hectr.scheme.clip", 60, 90),
+        _event(0, "hectr.loop.plant", 150, 250),
+        _event(1, "cudaLaunchKernel", 10, 12),
+        _event(2, "cudaLaunchKernel", 50, 52),
+        _event(3, "cudaLaunchKernel", 70, 71),
+        _event(4, "cudaLaunchKernel", 160, 161),
+        _event(1, "ntt_fwd_kernel", 20, 30, cuda),
+        _event(2, "rns_map_kernel", 60, 64, cuda),
+        _event(3, "key_inner_product_kernel", 80, 100, cuda),
+        _event(4, "crt_decode_kernel", 200, 210, cuda),
+        _event(0, "hectr.qp.pgd", 20, 110, cuda, annotation=True),
+    ]
+    got = PS.inclusive_ms(events, ("qp.pgd", "scheme.clip", "loop.plant",
+                                   "qp.grad"), steps=2)
+    per = 1e-3 / 2
+    assert got == {"qp.pgd": pytest.approx(34 * per),
+                   "scheme.clip": pytest.approx(30 * per),
+                   "loop.plant": pytest.approx(10 * per), "qp.grad": 0.0}
+
+
 def _row(key, count, us, device="DeviceType.CUDA", annotation=False):
     return types.SimpleNamespace(key=key, count=count, device_type=device,
                                  self_device_time_total=us,

@@ -210,20 +210,16 @@ def test_limb_mesh_regulator_stays_uncaptured(small):
     pmu.reset_counts()
 
 
-def test_step_graph_bookkeeping_with_a_stand_in_graph(small, monkeypatch):
-    """StepGraph's keys, captures, copies and counts on the CPU, with a
-    stand-in for the CUDA graph: its capture draws nothing (the
-    generator's state is put back, as a capture leaves it) and its replay
-    runs the step on the held inputs into the held outputs.  Episodes,
-    a change of batch and a second sampler come out bit-equal to the
-    uncaptured step, counted as the card counts them; a returned move is
-    never the held output."""
+def stand_in_graph(monkeypatch, step):
+    """A StepGraph of `step` on the CPU with a stand-in for the CUDA
+    graph: its capture draws nothing (the generator's state is put back,
+    as a capture leaves it) and its replay runs the step on the held
+    inputs into the held outputs, with every registered counter held as
+    it was (a real replay runs no Python: ``Replayed`` counts it).
+    Returns (graph, run(sampler, p): episodes through the graph)."""
     from hectr_tpu_torch.hempc.regulator import StepGraph
 
-    ctx, keys, rk = small
-    model, plant = cli.cstr_setup()
-    reg = make_hempc_regulator(ctx, keys, rk, model, plant, HORIZON)
-    graph = StepGraph(reg.uncaptured)
+    graph = StepGraph(step)
     held = {}
 
     class StandIn:
@@ -231,8 +227,9 @@ def test_step_graph_bookkeeping_with_a_stand_in_graph(small, monkeypatch):
             self.gen = gen
 
         def replay(self):
-            u, (_, c) = graph.step((held["sampler"], graph.inputs[-1]),
-                                   *graph.inputs[:-1])
+            with launches.Replayed().capture():
+                u, (_, c) = graph.step((held["sampler"], graph.inputs[-1]),
+                                       *graph.inputs[:-1])
             graph.outputs[0].copy_(u)
             graph.outputs[1].copy_(c)
 
@@ -252,6 +249,19 @@ def test_step_graph_bookkeeping_with_a_stand_in_graph(small, monkeypatch):
     def run(sampler, p):
         held["sampler"] = sampler
         return episodes(graph, sampler, p, CPU)
+    return graph, run
+
+
+def test_step_graph_bookkeeping_with_a_stand_in_graph(small, monkeypatch):
+    """StepGraph's keys, captures, copies and counts on the CPU, with a
+    stand-in for the CUDA graph (``stand_in_graph``).  Episodes, a change
+    of batch and a second sampler come out bit-equal to the uncaptured
+    step, counted as the card counts them; a returned move is never the
+    held output."""
+    ctx, keys, rk = small
+    model, plant = cli.cstr_setup()
+    reg = make_hempc_regulator(ctx, keys, rk, model, plant, HORIZON)
+    graph, run = stand_in_graph(monkeypatch, reg.uncaptured)
 
     pmu.reset_counts()
     a, b = S.TorchSampler(3, CPU), S.TorchSampler(4, CPU)
@@ -269,6 +279,92 @@ def test_step_graph_bookkeeping_with_a_stand_in_graph(small, monkeypatch):
     u, (_, c) = graph((b, torch.zeros(())), *zeros)
     assert u.data_ptr() != graph.outputs[0].data_ptr()
     assert c.data_ptr() != graph.outputs[1].data_ptr()
+    pmu.reset_counts()
+
+
+# ---- the encrypted QP's counts and spans ------------------------------------
+
+
+# 18 data limbs: the gemv pair leaves k_in = 16, and degree 3 with one
+# iteration needs 6 + (2 + 6) = 14 below it; 32 data limbs for degree 7
+# with two iterations (28 below k_in = 30), as FLAGSHIP_QP
+QP_RINGS = {(3, 1): 8, (7, 2): 15}
+
+
+@pytest.fixture(scope="module")
+def qp_regulators():
+    """A constrained regulator at logN = 8 for each (degree, iterations)
+    of QP_RINGS, the du box of ``bench.batch``, its relinearisation key
+    in the compact layout."""
+    from hectr_tpu_torch.bench import batch as BB
+    from hectr_tpu_torch.ckks.keyswitch import gen_relin_key
+
+    model, plant = cli.cstr_setup()
+    out = {}
+    for (degree, iters), depth in QP_RINGS.items():
+        preset = cfg.CKKSPreset(name=f"qp-count-{degree}", logn=8, slots=16,
+                                scale_bits=50, limb_bits=25, mult_depth=depth,
+                                special_limbs=2, digit_width=2)
+        ctx, keys, rk = cli.hempc_keys(preset, 0, CPU, bsgs_rotations(16))
+        relin = gen_relin_key(ctx, keys, S.TorchSampler(9, CPU),
+                              compact=True)
+        out[degree, iters] = make_hempc_regulator(
+            ctx, keys, rk, model, plant, HORIZON, bounds=BB.qp_bounds(),
+            relin_key=relin, qp_iters=iters, qp_degree=degree,
+            qp_input_bound=BB.QP_INPUT_BOUND)
+    return out
+
+
+@pytest.mark.parametrize("degree,iters", list(QP_RINGS))
+def test_qp_counts_a_step_as_the_depth_ledger_predicts(qp_regulators, degree,
+                                                       iters):
+    """Each uncaptured step counts one encrypted solve's work
+    (``qp_enc.pgd_counts``): its clips, ct x ct multiplies,
+    relinearisations and rescales, and the ledger's depth,
+    ``pgd_limbs_required`` / 2 rescale pairs (14 at degree 7, two
+    iterations); the spans qp.pgd and qp.grad open once a step and once
+    an iteration."""
+    from hectr_tpu_torch.hempc import qp_enc
+
+    reg = qp_regulators[degree, iters]
+    qp_enc.COUNTS.clear()
+    with pmu.recording() as rec:
+        episodes(reg, S.TorchSampler(5, CPU), disturbances(1, 2), CPU)
+    want = qp_enc.pgd_counts(degree, iters)
+    assert dict(qp_enc.COUNTS) == {k: 2 * n for k, n in want.items()}
+    assert want["levels"] == qp_enc.pgd_limbs_required(degree, iters) // 2
+    assert (want["ct_mult"], want["levels"]) == {(3, 1): (4, 7),
+                                                 (7, 2): (15, 14)}[degree,
+                                                                    iters]
+    assert rec.table["qp.pgd"]["calls"] == 2
+    assert rec.table["qp.grad"]["calls"] == 2 * iters
+    assert rec.table["scheme.clip"]["calls"] == 2 * (iters + 1)
+    qp_enc.COUNTS.clear()
+
+
+def test_qp_counts_under_a_stand_in_replay(qp_regulators, monkeypatch):
+    """Through StepGraph with a stand-in CUDA graph (one uncaptured step,
+    one capture, replays that run no counted Python), the QP's counters
+    read what the uncaptured step's read on the same episodes: the
+    capture's counts added once a replay; the moves bit-equal."""
+    from hectr_tpu_torch.hempc import qp_enc
+
+    reg = qp_regulators[3, 1]
+    p = disturbances(1, 3)
+    qp_enc.COUNTS.clear()
+    want = episodes(reg.uncaptured, S.TorchSampler(8, CPU), p, CPU)
+    uncaptured = dict(qp_enc.COUNTS)
+    qp_enc.COUNTS.clear()
+    pmu.reset_counts()
+    graph, run = stand_in_graph(monkeypatch, reg.uncaptured)
+    got = run(S.TorchSampler(8, CPU), p)
+    assert regulator_counts() == {"regulator.uncaptured": 1,
+                                  "regulator.capture": 1,
+                                  "regulator.replay": 2}
+    assert dict(qp_enc.COUNTS) == uncaptured == {
+        k: 3 * n for k, n in qp_enc.pgd_counts(3, 1).items()}
+    assert_bit_equal(got, want)
+    qp_enc.COUNTS.clear()
     pmu.reset_counts()
 
 
@@ -392,10 +488,10 @@ def test_tracing_op_set_stays_uncaptured(secure_card):
 def test_flagship_qp_replayed_bit_equal_uncaptured():
     """The constrained FLAGSHIP_QP regulator (the encrypted PGD QP inside
     the captured step), two episodes at one plant of the constrained
-    loop's own length (``bench.batch.QP_STEPS``: past some 15 steps of
-    its +10% inlet step the plaintext mirror leaves the clip's certified
-    domain): bit-equal to the uncaptured step, counted as one capture and
-    2 QP_STEPS - 1 replays."""
+    loop's own length (``bench.batch.QP_STEPS``): bit-equal to the
+    uncaptured step, counted as one capture and 2 QP_STEPS - 1 replays,
+    every launch counter and the QP's counts (``qp_enc.COUNTS``, a
+    registered counter) as the uncaptured path left them."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA graphs have no CPU mode)")
     from hectr_tpu_torch.bench import batch as BB
